@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (crimac_unet_tpu_torch).
 
-    python3 chip_smoke.py                # every phase, on CUDA device 0
-    python3 chip_smoke.py --phases 1,2   # a subset (debugging)
+    python3 chip_smoke.py                  # every phase, on CUDA device 0
+    python3 chip_smoke.py --phases 1,2     # a subset (debugging)
 
 Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit; imports
 nothing of JAX or of the JAX package.  Phases, in order; any failure
@@ -11,24 +11,31 @@ raises and the script exits nonzero without its result line:
 1. the card (nvidia-smi name and power limit), torch / CUDA versions, and
    the build of every kernel from ``crimac_unet_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version on the card at the main
-   path's shapes, with NaN, +-Inf, negative-sv and edge-of-slab inputs
-   (gather_db within one ulp of the output dtype; the pools bit-equal,
-   NaN positions included), and its time beside the plain version, a
-   single PyTorch call where one computes the same function, and the
-   least time the card could take (bytes over 3.35 TB/s, operations over
-   67 TFLOP/s float32);
-3. a small agreement run: one synthetic echogram through the whole
-   predict path on the CPU (plain versions) and on the card (kernels),
-   depth 3 / start_filts 8, float32, TF32 off, BatchNorm folded and
-   unfolded: identical write masks, probabilities within 2 float16 ulp;
-4. the main path at full width: ``run_save_predictions`` on a seeded
-   1000 x 4000 x 4 memmap echogram with the flagship U-Net (depth 5,
-   start_filts 64, seeded random weights, bfloat16, patch 256 / overlap
-   20, fwd_batch 32), BatchNorm folded (the serving default) and then
-   unfolded, each with the launch counters reset just before and read
-   just after;
-5. one JSON line naming every kernel with its phase-2 and phase-4
-   numbers, then the last line ``{"ok": true, "device": {...}}``.
+   paths' shapes, with NaN, +-Inf, negative-sv and edge-of-slab inputs
+   (gather_db within one ulp of the output dtype; the pools and the
+   closing bit-equal, NaN positions included), and its time beside the
+   plain version, a single PyTorch call where one computes the same
+   function, and the least time the card could take (bytes over
+   3.35 TB/s, operations over 67 TFLOP/s float32);
+3. small agreement runs on the CPU (plain versions) and on the card
+   (kernels), depth 3 / start_filts 8, float32, TF32 off: one synthetic
+   echogram through the whole predict path (BatchNorm folded and
+   unfolded: identical write masks, probabilities within 2 float16 ulp)
+   and through gridded evaluation (modes all, region, trace: identical
+   per-class pixel counts, max-F1 and AP within 2e-3);
+4. the prediction main path at full width: ``run_save_predictions`` on a
+   seeded 1000 x 4000 x 4 memmap echogram with the flagship U-Net (depth
+   5, start_filts 64, seeded random weights, bfloat16, patch 256 /
+   overlap 20, fwd_batch 32), BatchNorm folded (the serving default) and
+   then unfolded, each with the launch counters reset just before and
+   read just after;
+5. the evaluation main path at full width: ``evaluate_survey`` over the
+   same survey (eval_mode all, bfloat16 transfer, BatchNorm folded): a
+   warm-up, a timed run with the launch counters reset just before and
+   read just after, then a region run;
+6. one JSON line naming every kernel with its phase-2 numbers and its
+   launches on the main path that runs it (K1-K3 phase 4, K4 phase 5),
+   then the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -53,7 +60,11 @@ KERNELS = {
                        replaces="crimac_unet_tpu/ops/pallas_pool.py:114"),
     "relu_pool_skip": dict(source="crimac_unet_tpu_torch/csrc/pool.cu",
                            replaces="crimac_unet_tpu/ops/pallas_pool.py:187"),
+    "binary_closing": dict(
+        source="crimac_unet_tpu_torch/csrc/closing.cu",
+        replaces="crimac_unet_tpu/ops/pallas_morphology.py:60"),
 }
+EVAL_CHUNK_COLS = 8           # evaluate_reader's column group
 
 
 class SmokeFailure(RuntimeError):
@@ -265,7 +276,104 @@ def phase_kernels(torch, card, reader, cfg):
               f"{shape} bf16: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) [{card}]")
+    results["binary_closing"] = phase_closing(torch, card, reader, cfg)
     return results
+
+
+def first_eval_masks(torch, reader, cfg):
+    """K4's inputs on the eval main path's first sub-batch: the
+    ``(labels > 0) & threshold`` masks and the non-boundary crop boxes of
+    the first column group's first sub-batch of patches, built with the
+    port's own grid law, host label conversion and bbox op."""
+    import numpy as np
+    from crimac_unet_tpu_torch.ops.label_ops import (REFINE_THRESHOLD_HI,
+                                                     REFINE_THRESHOLD_LO,
+                                                     _valid_bbox_mask)
+    from crimac_unet_tpu_torch.ops.patches import grid_dims, make_grid_starts
+    from crimac_unet_tpu_torch.pipeline.infer_common import (
+        _convert_labels_host, _grid_extent_rows)
+    from crimac_unet_tpu_torch.pipeline.runner import sub_batch_shape
+
+    wh, ww = cfg["patch_size"]
+    o = cfg["patch_overlap"]
+    sh, sw = wh - 2 * o, ww - 2 * o
+    n_range, n_pings = reader.shape
+    R = _grid_extent_rows(n_range, reader.get_seabed(0, n_pings),
+                          reader.seabed_known(0, n_pings), wh, o)
+    Cc = min(EVAL_CHUNK_COLS, grid_dims(0, n_pings, ww, o))
+    Hp, Wp = R * sh + 2 * o, Cc * sw + 2 * o
+    y1, x1 = min(n_range, R * sh + o), min(n_pings, (Cc - 1) * sw - o + ww)
+    lab = np.full((Hp, Wp), -100.0, np.float32)
+    lab[o:o + y1, o:o + x1] = reader.label_memmap()[:y1, :x1]
+    sv = np.zeros((Hp, Wp), np.float32)
+    sv[o:o + y1, o:o + x1] = reader.data_memmaps(
+        [max(cfg["frequencies"])])[0][:y1, :x1]
+    y0s, x0s = make_grid_starts(R, Cc, sh, sw, o, o, o)
+    B, _, _ = sub_batch_shape(len(y0s), cfg["fwd_batch"])
+    pad = np.zeros(max(B - len(y0s), 0), np.int32)
+    y0s, x0s = (np.concatenate([a, pad])[:B] for a in (y0s, x0s))
+    rows = (y0s[:, None] + np.arange(wh))[:, :, None]
+    cols = (x0s[:, None] + np.arange(ww))[:, None, :]
+    conv = _convert_labels_host(lab[rows, cols])
+    thr = sv[rows, cols]
+    mask = (conv > 0) & (thr > REFINE_THRESHOLD_LO) & \
+        (thr < REFINE_THRESHOLD_HI)
+    clip = _valid_bbox_mask(torch.from_numpy(conv != -100))
+    return torch.from_numpy(mask), clip.contiguous()
+
+
+def _box_clips(torch, B, H, W):
+    """Clip boxes: full, inner, touching each edge in turn, and empty."""
+    boxes = [(0, H, 0, W), (H // 8, H - H // 8, W // 8, W - W // 8),
+             (0, H // 2, W // 4, W - W // 4), (H // 3, H, 1, W - 1),
+             (2, H - 2, 0, W // 2), (1, H - 1, W // 3, W), (0, 0, 0, 0)]
+    clip = torch.zeros((B, H, W), dtype=torch.bool)
+    for b in range(B):
+        y0, y1, x0, x1 = boxes[b % len(boxes)]
+        clip[b, y0:y1, x0:x1] = True
+    return clip
+
+
+def phase_closing(torch, card, reader, cfg):
+    """K4 bit-equal to its plain version on the eval path's first
+    sub-batch shape: random masks of density 0 / 0.3 / 0.75 / 1 under
+    the seven clip boxes, the survey's real masks and crop boxes, and odd
+    shapes; then its time beside the plain version and its bound."""
+    from crimac_unet_tpu_torch.ops.closing import (binary_closing,
+                                                   binary_closing_reference)
+    dev = torch.device("cuda")
+    real_mask, real_clip = first_eval_masks(torch, reader, cfg)
+    B, H, W = real_mask.shape
+    g = torch.Generator().manual_seed(SEED + 2)
+    cases = [(real_mask, real_clip)]
+    for density in (0.0, 0.3, 0.75, 1.0):
+        m = torch.rand((B, H, W), generator=g) < density
+        cases += [(m, _box_clips(torch, B, H, W)),
+                  (m, torch.ones((B, H, W), dtype=torch.bool))]
+    for odd in ((3, 37, 45), (2, 5, 6), (1, 1, 1)):
+        cases.append((torch.rand(odd, generator=g) < 0.5,
+                      _box_clips(torch, *odd)))
+    for m, c in cases:
+        m, c = m.to(dev), c.to(dev)
+        got, want = binary_closing(m, c), binary_closing_reference(m, c)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"binary_closing != plain at "
+                                      f"{tuple(m.shape)}")
+    m, c = real_mask.to(dev), real_clip.to(dev)
+    n = m.numel()
+    # operations: a bit-packed closing (32 pixels per 32-bit word, each
+    # of the 37 offsets a shift and an OR/AND per word, dilate + erode)
+    b, by = bound_ms(3 * n, 2 * 2 * 37 * n // 32)
+    r = dict(max_abs_err=0.0,
+             ms=cuda_ms(torch, lambda: binary_closing(m, c)),
+             plain_ms=cuda_ms(torch, lambda: binary_closing_reference(m, c)),
+             bound_ms=b, bound_by=by, library_ms=None)
+    print(f"binary_closing: bit-equal to plain over {len(cases)} cases "
+          f"(densities 0/0.3/0.75/1, 7 clip boxes, the survey's masks "
+          f"({int(real_mask.sum())} px set), odd shapes); ({B}, {H}, {W}) "
+          f"bool: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"bound {b:.4f} ms ({by}) [{card}]")
+    return r
 
 
 # --------------------------------------------------------------- phase 3
@@ -321,9 +429,48 @@ def phase_agreement(torch, tmp):
                   f"max {diff.max()}")
             print(f"agreement (fold_bn {fold}): masks identical, max |dprob| "
                   f"{diff.max()} over {int((cpu != 0).sum())} written px")
+        eval_agreement(torch, dict(cfg, fold_bn=True), sd, reader)
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def _curve_scores(hist):
+    """(max-F1, average precision) of a PR histogram."""
+    import numpy as np
+    from crimac_unet_tpu_torch.ops import metrics
+    curve = metrics.pr_curve_from_histogram(hist)
+    ap = -np.sum(np.diff(curve["recall"]) * curve["precision"][:-1])
+    return metrics.max_f1(curve)[0], float(ap)
+
+
+def eval_agreement(torch, cfg, sd, reader):
+    """Gridded evaluation on the CPU (plain versions) and on the card
+    (kernels): identical per-class pixel counts (integer label algebra),
+    max-F1 and AP within 2e-3 (float32 sums in another order move a score
+    by a float16 ulp, which shifts its bin; tests/test_eval_parity.py)."""
+    import numpy as np
+    from crimac_unet_tpu_torch.models.unet import build_unet
+    from crimac_unet_tpu_torch.ops import metrics
+    from crimac_unet_tpu_torch.pipeline.eval_gridded import evaluate_reader
+    from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
+    for mode in ("all", "region", "trace"):
+        hists = [evaluate_reader(GriddedRunner(build_unet(cfg), sd, cfg,
+                                               device=device), reader,
+                                 metrics.new_histogram(), eval_mode=mode)
+                 for device in ("cpu", "cuda")]
+        cpu, gpu = hists
+        check(np.array_equal(cpu.sum(axis=1), gpu.sum(axis=1)),
+              f"eval {mode}: per-class counts differ CPU vs card: "
+              f"{cpu.sum(axis=1)} vs {gpu.sum(axis=1)}")
+        check(cpu[0].sum() > 0 and cpu[1].sum() > 0,
+              f"eval {mode}: a class has no scored pixel")
+        (f_c, ap_c), (f_g, ap_g) = _curve_scores(cpu), _curve_scores(gpu)
+        check(abs(f_c - f_g) < 2e-3 and abs(ap_c - ap_g) < 2e-3,
+              f"eval {mode}: F1 {f_c} vs {f_g}, AP {ap_c} vs {ap_g}")
+        print(f"eval agreement ({mode}): per-class counts identical "
+              f"{cpu.sum(axis=1).tolist()}, |dF1| {abs(f_c - f_g):.3g}, "
+              f"|dAP| {abs(ap_c - ap_g):.3g}")
 
 
 # --------------------------------------------------------------- phase 4
@@ -456,10 +603,68 @@ def phase_main(torch, cuda_lib, ech_dir, reader, cfg, card):
     return launches, n_pings / dt
 
 
+# --------------------------------------------------------------- phase 5
+def phase_eval(torch, cuda_lib, ech_dir, reader, cfg, card):
+    """The evaluation main path at full width through ``evaluate_survey``
+    on the memm partition of the phase-4 survey."""
+    from crimac_unet_tpu_torch.data.partition import make_partition
+    from crimac_unet_tpu_torch.models.unet import build_unet, init_random_
+    from crimac_unet_tpu_torch.pipeline.evaluate import evaluate_survey
+    from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
+
+    cfg = dict(cfg, eval_mode="all", partition_predict="selected surveys",
+               evaluation_surveys=[2017], transfer_dtype="bfloat16")
+    sd = init_random_(build_unet(cfg), torch.Generator().manual_seed(
+        SEED)).state_dict()
+    part = make_partition(cfg, path_to_echograms=str(ech_dir))
+    readers = part.get_survey_readers(part.get_evaluation_surveys()[0])
+    check(len(readers) == 1, f"partition found {len(readers)} readers")
+    n_pings = reader.shape[1]
+    runner = GriddedRunner(build_unet(cfg), sd, cfg)
+
+    def run(mode, label):
+        cuda_lib.reset_launches()
+        f0 = runner.forwards
+        t = time.perf_counter()
+        curve = evaluate_survey(runner, readers, mode)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts, fwd = dict(cuda_lib.launches), runner.forwards - f0
+        f1 = float(curve["F1"].max())
+        # the lowest threshold scores every counted pixel: a non-empty
+        # curve has a total > 0, and precision > 0 there means positives
+        check(len(curve["thresholds"]) > 0 and curve["precision"][0] > 0,
+              f"{label}: no scored pixels or no positives")
+        check(0.0 <= f1 <= 1.0, f"{label}: F1 {f1}")
+        print(f"{label}: {fwd} sub-batches, launches {counts}, {dt:.3f} s "
+              f"= {n_pings / dt:.1f} pings/s, max F1 {f1:.6f}, "
+              f"{len(curve['thresholds'])} thresholds, positive share at "
+              f"the lowest threshold {curve['precision'][0]:.6f} [{card}]")
+        return counts, fwd, dt
+
+    run("all", "eval warm-up (cuDNN plans, allocator)")
+    runner.timer.reset()
+    torch.cuda.reset_peak_memory_stats()
+    counts, fwd, dt = run("all", "eval main path, mode all")
+    check(fwd > 0 and counts["binary_closing"] == fwd
+          and counts["relu_pool_skip"] == fwd and counts["gather_db"] == 0
+          and counts["maxpool2x2"] == 0,
+          f"eval run: launches {counts} for {fwd} sub-batches")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB")
+    print(f"PhaseTimer, eval main path [{card}]:")
+    print(runner.timer.report())
+    profile_run(torch, lambda: run("all", "eval profiled run")[2], card)
+    r_counts, r_fwd, _ = run("region", "eval, mode region")
+    check(r_fwd > 0 and r_counts["binary_closing"] == r_fwd,
+          f"region run: launches {r_counts} for {r_fwd} sub-batches")
+    return counts["binary_closing"], n_pings / dt
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4",
-                    help="comma-separated subset of phases 1-4")
+    ap.add_argument("--phases", default="1,2,3,4,5",
+                    help="comma-separated subset of phases 1-5")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -472,7 +677,7 @@ def main(argv=None) -> int:
     from crimac_unet_tpu_torch.ops import cuda_lib
 
     card = phase_card(torch, cuda_lib)
-    kernels, launches, pings_per_s = {}, {}, None
+    kernels, launches, pings_per_s, eval_pings_per_s = {}, {}, None, None
     with tempfile.TemporaryDirectory() as tmp:
         ech_dir, reader, cfg = main_setup(torch, Path(tmp))
         if 2 in phases:
@@ -482,7 +687,10 @@ def main(argv=None) -> int:
         if 4 in phases:
             launches, pings_per_s = phase_main(torch, cuda_lib, ech_dir,
                                                reader, cfg, card)
-    if phases >= {2, 4}:
+        if 5 in phases:
+            launches["binary_closing"], eval_pings_per_s = phase_eval(
+                torch, cuda_lib, ech_dir, reader, cfg, card)
+    if phases >= {2, 4, 5}:
         for name in KERNELS:
             check(launches.get(name, 0) > 0,
                   f"{name} was not launched on the main path")
@@ -490,7 +698,8 @@ def main(argv=None) -> int:
             dict(name=name, route="cuda", **KERNELS[name],
                  launches=launches[name], **kernels[name])
             for name in KERNELS]}))
-        print(f"main path: {pings_per_s:.1f} pings/s [{card}]")
+        print(f"main paths: prediction {pings_per_s:.1f} pings/s, "
+              f"evaluation {eval_pings_per_s:.1f} pings/s [{card}]")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

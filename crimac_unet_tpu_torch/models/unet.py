@@ -122,8 +122,8 @@ class UNet(nn.Module):
         super().__init__()
         if late_meta_inject:
             raise NotImplementedError(
-                "late_meta_inject is not ported yet (ROADMAP.md queue A "
-                "item 2: infer_mode slab, static_grid and meta channels)")
+                "late_meta_inject is not ported yet (ROADMAP.md queue A: "
+                "infer_mode slab, static_grid and meta channels)")
         self.hparams = dict(n_classes=n_classes, depth=depth,
                             start_filts=start_filts, in_channels=in_channels,
                             dtype=dtype, use_bn=use_bn)
@@ -146,7 +146,7 @@ class UNet(nn.Module):
         if self.training:
             raise NotImplementedError(
                 "the port's U-Net is eval-only so far (training is "
-                "ROADMAP.md queue A item 5); call .eval()")
+                "ROADMAP.md queue A); call .eval()")
         x = _nchw(x.contiguous()).to(self.dtype)  # channels_last NCHW view
         encoder_outs = []
         for i, down in enumerate(self.down_convs):

@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # dtype codes of csrc/common.cuh CrimacDtype
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
-launches = {"gather_db": 0, "maxpool2x2": 0, "relu_pool_skip": 0}
+launches = {"gather_db": 0, "maxpool2x2": 0, "relu_pool_skip": 0,
+            "binary_closing": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -117,8 +118,9 @@ def lib() -> ctypes.CDLL:
             L.crimac_maxpool2x2.argtypes = [P, P, I, I, I, I, I, I, P]
             L.crimac_relu_pool_skip.argtypes = [P, P, P, I, I, I, I, I, I,
                                                 P]
+            L.crimac_binary_closing.argtypes = [P, P, P, I, I, I, P]
             for fn in (L.crimac_gather_db, L.crimac_maxpool2x2,
-                       L.crimac_relu_pool_skip):
+                       L.crimac_relu_pool_skip, L.crimac_binary_closing):
                 fn.restype = I
             L.crimac_error_string.argtypes = [I]
             L.crimac_error_string.restype = ctypes.c_char_p

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..constants import LABEL_BOUNDARY_VAL
+
 DB_EPS = 1e-10
 DB_LOW = -75.0
 DB_HIGH = 0.0
@@ -41,6 +43,18 @@ def db_with_limits_scaled(data, limit_low=DB_LOW, limit_high=DB_HIGH):
     d = torch.clamp(db(data), max=0.0)
     d = torch.clamp(d, limit_low, limit_high)
     return 1.0 + _div(d, abs(limit_low))
+
+
+def set_data_border_value(data, labels, border_value=0.0,
+                          channels_last=False):
+    """Zero data (in dB space, after db_with_limits) where labels mark the
+    data boundary; test time only (reference set_data_border_value.py:19-23,
+    transforms.py:57-64).  ``channels_last`` broadcasts over NHWC patch
+    batches."""
+    border = labels == LABEL_BOUNDARY_VAL
+    border = border[:, :, :, None] if channels_last \
+        else border[:, None, :, :]
+    return torch.where(border, border_value, data)
 
 
 # transfer_dtype='uint8': dB codes per the [-75, 0] clip range.  code =

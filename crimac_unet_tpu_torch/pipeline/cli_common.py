@@ -1,0 +1,76 @@
+"""Preamble of the evaluation CLI (argparse -> YAML merge -> seed ->
+checkpoint -> model/runner -> partition -> output directories named after
+the checkpoint's run), as the JAX package's
+``crimac_unet_tpu/pipeline/cli_common.py``."""
+
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+
+@dataclass
+class EvalContext:
+    config: dict
+    runner: object
+    data_obj: object
+    metrics_dir: str | None
+    plot_dir: str | None
+
+
+def checkpoint_run_id(checkpoint_path) -> str:
+    """Output-directory component for a checkpoint: its parent directory
+    name (the training run's timestamp), falling back to the file stem for
+    a bare filename (reference evaluate.py derives the same nesting from
+    its checkpoint_dir layout)."""
+    parts = os.path.normpath(str(checkpoint_path)).split(os.path.sep)
+    if len(parts) >= 2 and parts[-2]:
+        return parts[-2]
+    return os.path.splitext(parts[-1])[0]
+
+
+def load_eval_context(argv=None) -> EvalContext:
+    """Parse the ``eval`` flag set, load the reference ``.pt`` state dict
+    into a GriddedRunner on ``config['device']`` (cuda when absent),
+    build the data partition and create the per-run metrics and plot
+    directories."""
+    from ..config import (get_argparse_parser, load_yaml_config,
+                          parse_config_options)
+    from ..data.partition import make_partition
+    from ..models.unet import build_unet
+    from ..models.weights import load_checkpoint
+    from ..utils.general import fix_seeds
+    from .runner import GriddedRunner
+
+    args = get_argparse_parser("eval").parse_args(argv)
+    config = parse_config_options(load_yaml_config(args.yaml_path), args)
+    experiment_name = Path(config["yaml_path"]).stem
+
+    fix_seeds(config["random_seed"])
+    runner = GriddedRunner(build_unet(config),
+                           load_checkpoint(config["checkpoint_path"]),
+                           config, device=config.get("device"))
+
+    print(f'\nLoading {config["data_mode"]} data partition object...')
+    start = time.time()
+    data_obj = make_partition(config)
+    print("Executed time for loading data partition object (min):"
+          f" {round((time.time() - start) / 60, 2)}")
+
+    run_id = checkpoint_run_id(config["checkpoint_path"])
+    metrics_dir = plot_dir = None
+    if config.get("save_path_metrics") is not None:
+        metrics_dir = os.path.join(str(config["save_path_metrics"]),
+                                   experiment_name, run_id)
+        os.makedirs(metrics_dir, exist_ok=True)
+        print("Metrics directory:", metrics_dir)
+    if config.get("save_path_plot") is not None:
+        plot_dir = os.path.join(str(config["save_path_plot"]),
+                                experiment_name, run_id)
+        os.makedirs(plot_dir, exist_ok=True)
+        print("Plot directory:", plot_dir, "\n")
+
+    return EvalContext(config=config, runner=runner, data_obj=data_obj,
+                       metrics_dir=metrics_dir, plot_dir=plot_dir)

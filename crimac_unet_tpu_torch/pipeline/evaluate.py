@@ -1,0 +1,60 @@
+"""Evaluation entry point of the port (memmap surveys).
+
+    python -m crimac_unet_tpu_torch.pipeline.evaluate --yaml_path ... \
+        --checkpoint_path model.pt --save_path_metrics ... \
+        --save_path_plot ... [--device cpu]
+
+Reference surface (pipeline_train_predict/evaluate.py:120-167): per
+evaluation survey, sliding-window metrics in the configured eval mode
+(all/region/fish->trace) written as ``<survey>_test.csv`` and
+``<survey>_pr.png`` (the plot needs matplotlib) under
+``<save_path>/<experiment>/<checkpoint-run>/``.
+"""
+
+from __future__ import annotations
+
+import os
+
+from ..constants import EVAL_MODE_MAP
+from ..ops import metrics as M
+from .eval_gridded import evaluate_reader
+from .segpipe import save_metrics_dict, save_pr_plot
+
+
+def evaluate_survey(runner, readers, eval_mode, save_path_metrics=None,
+                    save_path_plot=None, progress=False):
+    """One PR curve per survey over all its readers (reference
+    evaluate.py:39-117 concatenates readers into one metric)."""
+    hist = M.new_histogram()
+    for reader in readers:
+        hist = evaluate_reader(runner, reader, hist,
+                               eval_mode=EVAL_MODE_MAP[eval_mode],
+                               progress=progress)
+    curve = M.pr_curve_from_histogram(hist)
+    if save_path_metrics is not None:
+        save_metrics_dict(curve, save_path_metrics)
+    if save_path_plot is not None:
+        save_pr_plot(curve, save_path_plot)
+    f1, _ = M.max_f1(curve)
+    print(f"F1 score: {f1}")
+    return curve
+
+
+def main(argv=None):
+    from .cli_common import load_eval_context
+
+    ctx = load_eval_context(argv)
+    for survey in ctx.data_obj.get_evaluation_surveys():
+        readers = ctx.data_obj.get_survey_readers(survey)
+        print("Running evaluation for", survey)
+        evaluate_survey(
+            ctx.runner, readers, ctx.config["eval_mode"],
+            save_path_metrics=os.path.join(ctx.metrics_dir,
+                                           f"{survey}_test.csv"),
+            save_path_plot=os.path.join(ctx.plot_dir, f"{survey}_pr.png"),
+            progress=True)
+    print(ctx.runner.timer.report())
+
+
+if __name__ == "__main__":
+    main()

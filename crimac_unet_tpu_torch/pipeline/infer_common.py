@@ -1,8 +1,9 @@
-"""Shared primitives of the gridded predict pipeline.
+"""Shared primitives of the gridded predict and eval pipelines.
 
 Quantization laws (h2d dB codes, d2h probability codes), the device-side
-bit-unpack for packed predicate masks, the HWC slab filler and the
-reference grid-extent law — used by pipeline/predict.py and
+bit-unpack for packed predicate masks, the host label conversion of
+quantized-transfer eval, the HWC slab filler and the reference grid-extent
+law — used by pipeline/predict.py, pipeline/eval_gridded.py and
 pipeline/runner.py.  Same laws as the JAX package's
 ``crimac_unet_tpu/pipeline/infer_common.py``.
 """
@@ -12,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..constants import (BACKGROUND, LABEL_IGNORE_VAL, LABEL_UNUSED_SPECIES,
+                         OTHER, RAW_OTHER, RAW_SANDEEL, SANDEEL)
 from ..ops.data_ops import DB_U8_SCALE
 from ..ops.patches import grid_dims
 
@@ -62,6 +65,27 @@ def _quantize_db_u8(x):
     d *= DB_U8_SCALE
     d += 0.5                             # round-half-up via the trunc cast
     return d.astype(np.uint8)
+
+
+def _convert_labels_host(labels):
+    """Host mirror of the device label conversion of the float32 eval path
+    (gathered labels cast to int32 by truncation, then
+    ``convert_label_indexing(..., mark_unused_species=True)``), shipped as
+    int8 under a quantized transfer: raw codes {0, 27, 1} -> {0, 1, 2},
+    other positive codes -> LABEL_UNUSED_SPECIES, the rest ->
+    LABEL_IGNORE_VAL; fractional codes truncate (27.5 -> SANDEEL, -0.5 ->
+    BACKGROUND); non-finite values map to LABEL_IGNORE_VAL."""
+    if np.issubdtype(labels.dtype, np.floating):
+        labels = np.where(np.isfinite(labels), labels,
+                          float(LABEL_IGNORE_VAL))
+    li = labels.astype(np.int32)  # device-equal truncation
+    out = np.full(li.shape, LABEL_IGNORE_VAL, np.int8)
+    out[li == 0] = BACKGROUND
+    out[li == RAW_SANDEEL] = SANDEEL
+    out[li == RAW_OTHER] = OTHER
+    unused = (li > 0) & (li != RAW_SANDEEL) & (li != RAW_OTHER)
+    out[unused] = LABEL_UNUSED_SPECIES
+    return out
 
 
 def _fill_hwc_slab(reader, frequencies, data_slab, slab_x0, slab_x1,

@@ -20,15 +20,12 @@ import numpy as np
 import torch
 
 from ..constants import SEABED_PAD
+from ..ops.label_ops import BIG_ROW
 from ..ops.patches import grid_dims, make_grid_starts
 from ..utils.preload_split import get_data_split
 from .infer_common import (_U8_PROB_DEQUANT, _fill_hwc_slab,
                            _grid_extent_rows, _quantize_db_u8, _round_up)
 from .runner import GriddedRunner
-
-# "no seabed in this column" sentinel of the seabed vectors (the JAX
-# package's ops/label_ops.BIG_ROW)
-BIG_ROW = 10 ** 8
 
 
 def _keep_row_bound(fin, zero, sb_vec, row_cut, nr):

@@ -1,11 +1,14 @@
-"""GriddedRunner: the device side of gridded (patch-mode) prediction.
+"""GriddedRunner: the device side of gridded (patch-mode) prediction and
+evaluation.
 
 Holds the served (BatchNorm-folded by default) U-Net on its device and
-the two per-chunk programs of the JAX package's runner
+the per-chunk programs of the JAX package's runner
 (``crimac_unet_tpu/pipeline/runner.py``): ``_predict_patches`` (gather +
 dB in the gather_db kernel, U-Net forward in sub-batches, softmax,
-stitch) and ``_mask_output`` (write-mask crop to the on-disk dtype).
-Driven by pipeline/predict.py.
+stitch), ``_mask_output`` (write-mask crop to the on-disk dtype) and
+``_eval_patches`` (per-patch test label chain, with the closing kernel,
++ forward + PR histogram update).  Driven by pipeline/predict.py and
+pipeline/eval_gridded.py.
 """
 
 from __future__ import annotations
@@ -13,10 +16,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import SEABED_PAD
+from ..constants import LABEL_BOUNDARY_VAL, LABEL_IGNORE_VAL, SEABED_PAD
 from ..models.fold_bn import fold_for_serving
 from ..models.weights import to_tensors
+from ..ops import data_ops, label_ops, metrics
 from ..ops.gather_db import gather_db
+from ..ops.label_ops import BIG_ROW
 from ..ops.stitch import stitch_patches
 from ..utils.general import PhaseTimer
 from .infer_common import _quantize_prob_u8, _round_up, _unpack_bits
@@ -89,7 +94,7 @@ class GriddedRunner:
                         ("meta_channels", bool(config.get("meta_channels")))):
             if on:
                 raise NotImplementedError(
-                    f"{key} is not ported yet (ROADMAP.md queue A item 2: "
+                    f"{key} is not ported yet (ROADMAP.md queue A: "
                     "infer_mode slab, static_grid and meta channels)")
         self.timer = PhaseTimer()
         self.patches_processed = 0  # forward-pass patch count
@@ -176,3 +181,112 @@ class GriddedRunner:
         if self.output_dtype == "uint8":
             return _quantize_prob_u8(out)
         return out.to(torch.float16)
+
+    def _eval_patches(self, hist, data_slab, label_slab, sb_pad, keep_slab,
+                      thr_slab, starts, N, grid_h, zarr_pad=False,
+                      use_meta=False):
+        """Per-patch test label chain + forward + PR histogram update for
+        one column group; adds into the int32 ``hist`` in place and
+        returns it.
+
+        ``data_slab`` (Hs <= grid_h, Wp, C) HWC and ``label_slab`` (Hs, Wp)
+        are in padded grid coordinates; the rows below Hs are re-grown here
+        with the host's fill values (data zeros; labels BOUNDARY, or IGNORE
+        for the int8 labels of a quantized transfer).  ``sb_pad`` (Wp,) is
+        the absolute seabed row per slab column (BIG_ROW where absent);
+        ``keep_slab`` the (grid_h, Wp) region/trace keep mask or None;
+        ``thr_slab`` the packed refine-threshold predicate rows of a
+        quantized transfer (the int8 label slab is the signal) or None;
+        ``starts`` (4, Np) int32: patch starts y0, x0, each patch's first
+        data row and its live flag (0 for the sub-batch pad), padded to
+        the sub-batch total."""
+        if zarr_pad:
+            raise NotImplementedError(
+                "zarr evaluation is not ported yet (ROADMAP.md queue A: "
+                "zarr I/O)")
+        if use_meta:
+            raise NotImplementedError(
+                "meta channels are not ported yet (ROADMAP.md queue A: "
+                "infer_mode slab, static_grid and meta channels)")
+        wh, ww = self.window
+        dev = data_slab.device
+        use_thr = label_slab.dtype == torch.int8
+        # re-grow the pad rows the host did not ship
+        ph = max(grid_h - data_slab.shape[0], 0)
+        if ph:
+            data_slab = torch.cat([data_slab, data_slab.new_zeros(
+                (ph,) + tuple(data_slab.shape[1:]))])
+            label_slab = torch.cat([label_slab, label_slab.new_full(
+                (ph, label_slab.shape[1]),
+                LABEL_IGNORE_VAL if use_thr else LABEL_BOUNDARY_VAL)])
+        thr_bool = None
+        if use_thr:
+            if thr_slab is None:
+                raise ValueError(
+                    "int8 (pre-converted) label slab without a threshold "
+                    "predicate slab: quantized-transfer eval ships both")
+            thr_bool = _unpack_bits(thr_slab, data_slab.shape[1])
+            # pad rows are host zeros: (0 > lo) & (0 < hi) is False
+            thr_bool = torch.cat([thr_bool, thr_bool.new_zeros(
+                (max(grid_h - thr_bool.shape[0], 0), thr_bool.shape[1]))])
+
+        B, Np, nb = self._sub_batch_shape(N)
+        ar_h = torch.arange(wh, device=dev)
+        ar_w = torch.arange(ww, device=dev)
+        for k in range(nb):
+            y0b, x0b, py0b, cvb = starts[:, k * B:(k + 1) * B]
+            rows = (y0b[:, None] + ar_h)[:, :, None]      # (B, wh, 1)
+            cols = (x0b[:, None] + ar_w)[:, None, :]      # (B, 1, ww)
+            data = data_slab[rows, cols]                  # (B, wh, ww, C)
+            if not use_thr:
+                # float32 (exact) mode: refine reads the scrubbed raw sv
+                # (the reference's eval crops scrub before any transform)
+                data = torch.where(torch.isfinite(data), data, 0.0)
+            labels = label_slab[rows, cols]
+            labels = labels.to(torch.int32) if use_thr \
+                else _float_to_int32(labels)
+
+            sb_abs = sb_pad[x0b[:, None] + ar_w]          # (B, ww)
+            sy0 = torch.clamp(py0b, min=0)[:, None]
+            # memmap: max(seabed + pad, patch_top) (data_reader.py:407-431)
+            thresh = torch.maximum(sb_abs + SEABED_PAD, sy0)
+            sb_rows = torch.clamp(thresh - py0b[:, None], -(10 ** 6),
+                                  BIG_ROW).to(torch.int32)
+
+            # label test chain (transforms.py:78-92)
+            thr = None
+            if use_thr:
+                lab = labels
+                thr = thr_bool[rows, cols]
+            else:
+                lab = label_ops.convert_label_indexing(
+                    labels, mark_unused_species=True)
+            lab = label_ops.refine_label_boundary(
+                data, lab, threshold_freq_idx=-1, channels_last=True,
+                threshold_mask=thr)
+            lab = label_ops.mask_label_seabed(lab, sb_rows)
+            lab = label_ops.mask_label_overlap(lab, self.overlap)
+            if keep_slab is not None:
+                lab = torch.where(keep_slab[rows, cols], lab, -1)
+            # pad patches contribute nothing (after the keep override,
+            # which would otherwise make them -1 negatives)
+            lab = torch.where(cvb[:, None, None] > 0, lab, LABEL_IGNORE_VAL)
+
+            # memmap eval zeroes dB data at the boundary (the reference's
+            # define_data_transform_test; its zarr eval does not)
+            d = data_ops.set_data_border_value(
+                data_ops.net_db_input(data, scaled=False), lab,
+                channels_last=True)
+            probs = torch.softmax(self.model(d), dim=-1)
+            metrics.update_pr_histogram(hist, probs[..., 1], lab)
+            self.forwards += 1
+        return hist
+
+
+def _float_to_int32(x: torch.Tensor) -> torch.Tensor:
+    """float -> int32 as XLA converts (``astype(jnp.int32)``): truncation
+    toward zero, NaN -> 0, saturation at the int32 range.  torch's cast
+    leaves NaN and out-of-range values undefined, and CPU and CUDA differ
+    there; a memmap label file of a float dtype can hold NaN."""
+    x = torch.where(torch.isnan(x), 0.0, x).to(torch.float64)
+    return torch.clamp(x, -2.0 ** 31, 2.0 ** 31 - 1).to(torch.int32)

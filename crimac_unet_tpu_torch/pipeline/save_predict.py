@@ -31,7 +31,7 @@ def run_save_predictions(config, runner, predictions_dir, progress=False,
     filters as the JAX package's memmap partition."""
     if config["data_mode"] != "memm":
         raise NotImplementedError(
-            "data_mode 'zarr' is not ported yet (ROADMAP.md queue A item 1: "
+            "data_mode 'zarr' is not ported yet (ROADMAP.md queue A: "
             "zarr I/O and save_survey_predictions_zarr/dockerscript)")
     if not config.get("save_prediction_surveys"):
         print("WARNING: save_prediction_surveys is empty — nothing to "

@@ -8,7 +8,7 @@ CUDA toolkit (tests/conftest.py imports JAX, hence ``--noconftest``):
 
 Stated tolerances: gather_db within one ulp of its output dtype (the same
 float32 arithmetic; log10f may round differently by one ulp), the pools
-bit-equal with equal NaN positions.
+bit-equal with equal NaN positions, the closing bit-equal.
 """
 
 import numpy as np
@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from crimac_unet_tpu_torch.ops import cuda_lib
+from crimac_unet_tpu_torch.ops.closing import (binary_closing,
+                                               binary_closing_reference)
 from crimac_unet_tpu_torch.ops.gather_db import (gather_db,
                                                  gather_db_reference)
 from crimac_unet_tpu_torch.ops.pool import (maxpool2x2, maxpool2x2_reference,
@@ -114,3 +116,28 @@ def test_kernels_raise_on_bad_input(cuda):
         gather_db(torch.zeros(8, 8, 4, device=cuda),
                   torch.zeros(2, dtype=torch.int32),
                   torch.zeros(2, dtype=torch.int32), (4, 4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(6, 256, 256), (3, 37, 45), (2, 5, 6),
+                                   (1, 1, 1)])
+def test_closing_kernel_bit_equal_plain(cuda, shape):
+    g = torch.Generator().manual_seed(13)
+    B, H, W = shape
+    before = cuda_lib.launches["binary_closing"]
+    for density in (0.0, 0.3, 0.75, 1.0):
+        mask = torch.rand(shape, generator=g) < density
+        clip = torch.zeros(shape, dtype=torch.bool)
+        for b in range(B):      # random boxes, some touching the edges
+            y0, x0 = (int(torch.randint(0, n // 2 + 1, (1,), generator=g))
+                      for n in (H, W))
+            y1 = int(torch.randint(y0, H + 1, (1,), generator=g))
+            x1 = int(torch.randint(x0, W + 1, (1,), generator=g))
+            clip[b, y0:y1, x0:x1] = True
+        clip[0] = True
+        mask, clip = mask.to(cuda), clip.to(cuda)
+        got = binary_closing(mask, clip)
+        want = binary_closing_reference(mask, clip)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bool and torch.equal(got, want), density
+    assert cuda_lib.launches["binary_closing"] == before + 4

@@ -52,7 +52,7 @@ def test_runner_on_cpu_leaves_jax_out_of_sys_modules():
     code = """
 import sys
 from crimac_unet_tpu_torch.models.unet import build_unet
-from crimac_unet_tpu_torch.pipeline import save_predict
+from crimac_unet_tpu_torch.pipeline import evaluate, save_predict
 from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
 cfg = {"patch_size": [64, 64], "patch_overlap": 8, "depth": 2,
        "start_filts": 4, "frequencies": [18, 38, 120, 200],
@@ -104,7 +104,7 @@ def test_kernel_modules_import_without_nvcc():
     code = """
 import shutil
 assert shutil.which("nvcc") is None
-from crimac_unet_tpu_torch.ops import cuda_lib, gather_db, pool
+from crimac_unet_tpu_torch.ops import cuda_lib, closing, gather_db, pool
 from crimac_unet_tpu_torch.models import unet
 assert cuda_lib._lib is None
 print("OK", cuda_lib.launches)
@@ -112,3 +112,17 @@ print("OK", cuda_lib.launches)
     proc = _run(code, {"PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "OK {'gather_db': 0" in proc.stdout
+
+
+def test_eval_cli_without_device_raises_without_cuda(tmp_path, monkeypatch):
+    from crimac_unet_tpu_torch.models.unet import UNet
+    from crimac_unet_tpu_torch.pipeline.evaluate import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    torch.save(UNet(depth=2, start_filts=4).state_dict(), tmp_path / "m.pt")
+    (tmp_path / "c.yaml").write_text(
+        "depth: 2\nstart_filts: 4\ncompute_dtype: float32\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--yaml_path", str(tmp_path / "c.yaml"), "--checkpoint_path",
+              str(tmp_path / "m.pt"), "--save_path_metrics",
+              str(tmp_path / "metrics"), "--save_path_plot",
+              str(tmp_path / "plots")])
