@@ -15,8 +15,12 @@ raises and the script exits nonzero without its result line:
    (gather_db within one ulp of the output dtype; the pools and the
    closing bit-equal, NaN positions included), and its time beside the
    plain version, a single PyTorch call where one computes the same
-   function, and the least time the card could take (bytes over
-   3.35 TB/s, operations over 67 TFLOP/s float32);
+   function, and the least time the card could take: the larger of
+   bytes over 3.35 TB/s and operations over the rate of their kind
+   (K1's float instructions, counted in its SASS, over 33.5 T/s; K4's
+   integer operations over 16.7 T/s; the pools' flops over 67 T/s).
+   Each time is the device's, the calls queued behind a device-side
+   sleep so the host's enqueue pace is not what is timed;
 3. small agreement runs on the CPU (plain versions) and on the card
    (kernels), depth 3 / start_filts 8, float32, TF32 off: one synthetic
    echogram through the whole predict path (BatchNorm folded and
@@ -51,6 +55,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
+F32_INSTR_PER_S = F32_FLOP_PER_S / 2   # an FFMA is 2 flops, 1 instruction
+INT32_OPS_PER_S = 132 * 64 * 1.98e9    # H100 SXM: 64 INT32 lanes per SM
+MAX_CLOCK_HZ = 2.0e9          # above the H100's 1.98 GHz boost: cycles of
+                              # torch.cuda._sleep last at least this long
 SEED = 20260
 
 KERNELS = {
@@ -76,14 +84,28 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+def host_ms(fn, iters=50):
+    """Mean host time of one call of ``fn`` (its enqueue; no sync)."""
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t) / iters * 1e3
+
+
 def cuda_ms(torch, fn, iters=50, warmup=5):
     """Mean device time of ``fn`` over ``iters`` back-to-back calls, by
-    CUDA events after a warm-up."""
+    CUDA events after a warm-up.  The timed calls are queued behind a
+    device-side sleep that outlasts their enqueue, so the events see the
+    device run them back to back: a kernel shorter than its wrapper's
+    host time is not timed at the host's pace."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    enqueue_s = host_ms(fn) * 1e-3 * iters
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * enqueue_s + 1e-3, 2.0) * MAX_CLOCK_HZ))
     start.record()
     for _ in range(iters):
         fn()
@@ -92,11 +114,38 @@ def cuda_ms(torch, fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(bytes_moved, flops):
+def bound_ms(bytes_moved, ops, ops_per_s=F32_FLOP_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    t_ops = ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def sass_float_ops_per_element(cuda_lib):
+    """Float instructions per element of K1's main-path instance
+    (gather_db_kernel<bf16, bf16, unscaled>; an older build without the
+    scaled template argument has one bf16 instance), read from its SASS
+    in the built library: the function's float-pipe instructions (F*,
+    I2F*, MUFU) over its inlined per-element paths, each of which adds
+    the transform's 1e-10 exactly once."""
+    import re
+    tool = Path(cuda_lib._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(cuda_lib.library_path())],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    funcs = [f for f in sass.split("Function : ")[1:]
+             if re.match(r"\S*gather_db_kernelI13__nv_bfloat16S\d*_(?:Lb0)?E",
+                         f)]
+    check(len(funcs) == 1, f"{len(funcs)} SASS functions match K1's "
+                           f"main-path instance")
+    ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)"
+                     r"([^;]*)", funcs[0])
+    fp = sum(op.startswith("F") or op in ("I2F", "I2FP", "MUFU")
+             for op, _ in ops)
+    paths = sum(op == "FADD" and "1.00000001335143196e-10" in rest
+                for op, rest in ops)
+    check(paths > 0, "no per-element path found in K1's SASS")
+    return fp / paths, fp, paths
 
 
 def max_ulp_err(torch, got, want):
@@ -177,7 +226,7 @@ def first_chunk_inputs(torch, reader, cfg):
     return torch.from_numpy(slab), y0s, x0s, g.border, B
 
 
-def phase_kernels(torch, card, reader, cfg):
+def phase_kernels(torch, cuda_lib, card, reader, cfg):
     import numpy as np
     from crimac_unet_tpu_torch.ops.gather_db import (gather_db,
                                                      gather_db_reference)
@@ -214,11 +263,42 @@ def phase_kernels(torch, card, reader, cfg):
                                   f"scaled {scaled} out {odt}: {err}")
                         worst = max(worst, err)
                         n_cases += 1
+    # the narrow-load and element-wise paths: fewer channels, odd start
+    # columns (row starts off 16 bytes) and rows of ww * Cf elements that
+    # are no multiple of the kernel's 8-element runs
+    for cf, shift, ww in ((4, 1, win[1]), (2, 1, win[1]),
+                          (1, 1, win[1] - 1), (3, 0, win[1] - 1)):
+        for sdtype, slab in slabs.items():
+            s = slab[:, :, :cf].contiguous().to(dev)
+            for odt in (torch.bfloat16, torch.float32):
+                args = (s, y0, x0 + shift, (win[0], ww), border, False, odt)
+                err, ok = max_ulp_err(torch, gather_db(*args),
+                                      gather_db_reference(*args))
+                torch.cuda.synchronize()
+                check(ok, f"gather_db off by more than one ulp: Cf {cf} "
+                          f"start +{shift} width {ww} slab {sdtype} out "
+                          f"{odt}: {err}")
+                worst = max(worst, err)
+                n_cases += 1
     s = slabs[torch.bfloat16].to(dev)
     main_args = (s, y0, x0, win, border, False, torch.bfloat16)
     out_bytes = B * win[0] * win[1] * Cf * 2
+    # operations: the float instructions of the per-element path (read
+    # from the kernel's SASS) for every element inside the data
+    # rectangle; those outside it are stored as 0.0 with no arithmetic
+    per_elem, fp, paths = sass_float_ops_per_element(cuda_lib)
+    by0, by1, bx0, bx1 = border
+    rows = np.clip(np.minimum(y0s + win[0], by1) - np.maximum(y0s, by0), 0,
+                   None)
+    cols = np.clip(np.minimum(x0s + win[1], bx1) - np.maximum(x0s, bx0), 0,
+                   None)
+    computed = int((rows * cols).sum()) * Cf
     b, by = bound_ms(s.numel() * 2 + 2 * B * 4 + out_bytes,
-                     B * win[0] * win[1] * Cf * 6)
+                     computed * per_elem, F32_INSTR_PER_S)
+    print(f"gather_db SASS (bf16 -> bf16, unscaled): {fp} float "
+          f"instructions over {paths} per-element paths = {per_elem:.2f} "
+          f"per element; {computed} of {B * win[0] * win[1] * Cf} elements "
+          f"inside the data rectangle")
     results["gather_db"] = dict(
         max_abs_err=worst,
         ms=cuda_ms(torch, lambda: gather_db(*main_args)),
@@ -227,7 +307,8 @@ def phase_kernels(torch, card, reader, cfg):
     print(f"gather_db: {n_cases} cases within 1 ulp (max abs err {worst}); "
           f"first-chunk slab {tuple(s.shape)} bf16 -> "
           f"({B}, {win[0]}, {win[1]}, {Cf}) bf16: kernel "
-          f"{results['gather_db']['ms']:.4f} ms, plain "
+          f"{results['gather_db']['ms']:.4f} ms (wrapper's host time "
+          f"{host_ms(lambda: gather_db(*main_args)):.4f} ms a call), plain "
           f"{results['gather_db']['plain_ms']:.4f} ms, bound {b:.4f} ms "
           f"({by}) [{card}]")
 
@@ -334,11 +415,41 @@ def _box_clips(torch, B, H, W):
     return clip
 
 
+def _word_edge_closings(torch, g):
+    """Where the kernel's 32-pixel words and 32-row bands end: widths and
+    heights around them (below the disc's size too), one set pixel and
+    one hole at each of columns 29-35, clip boxes ending on a word edge
+    +-1."""
+    cases = []
+    for W in (31, 32, 33, 63, 64, 65, 255, 256, 257):
+        for H in (1, 6, 7, 33):
+            m = torch.stack([torch.rand((H, W), generator=g) < d
+                             for d in (0.3, 0.6, 0.9)])
+            c = torch.ones_like(m)
+            c[1, :, :W - W % 32] = False
+            c[2, H // 3:, 1:W - 1] = False
+            cases.append((m, c))
+    for x in range(29, 36):
+        m = torch.zeros((2, 12, 64), dtype=torch.bool)
+        m[0, 6, x] = True
+        m[1] = True
+        m[1, 6, x] = False
+        cases.append((m, torch.ones_like(m)))
+    for edge in (31, 32, 33, 63, 64, 65):
+        m = torch.rand((2, 40, 96), generator=g) < 0.6
+        c = torch.zeros_like(m)
+        c[0, 3:37, 2:edge] = True
+        c[1, :, edge:] = True
+        cases.append((m, c))
+    return cases
+
+
 def phase_closing(torch, card, reader, cfg):
     """K4 bit-equal to its plain version on the eval path's first
     sub-batch shape: random masks of density 0 / 0.3 / 0.75 / 1 under
-    the seven clip boxes, the survey's real masks and crop boxes, and odd
-    shapes; then its time beside the plain version and its bound."""
+    the seven clip boxes, the survey's real masks and crop boxes, odd
+    shapes and the word-edge cases; then its time beside the plain
+    version and its bound."""
     from crimac_unet_tpu_torch.ops.closing import (binary_closing,
                                                    binary_closing_reference)
     dev = torch.device("cuda")
@@ -353,6 +464,7 @@ def phase_closing(torch, card, reader, cfg):
     for odd in ((3, 37, 45), (2, 5, 6), (1, 1, 1)):
         cases.append((torch.rand(odd, generator=g) < 0.5,
                       _box_clips(torch, *odd)))
+    cases += _word_edge_closings(torch, g)
     for m, c in cases:
         m, c = m.to(dev), c.to(dev)
         got, want = binary_closing(m, c), binary_closing_reference(m, c)
@@ -361,17 +473,23 @@ def phase_closing(torch, card, reader, cfg):
                                       f"{tuple(m.shape)}")
     m, c = real_mask.to(dev), real_clip.to(dev)
     n = m.numel()
-    # operations: a bit-packed closing (32 pixels per 32-bit word, each
-    # of the 37 offsets a shift and an OR/AND per word, dilate + erode)
-    b, by = bound_ms(3 * n, 2 * 2 * 37 * n // 32)
+    # operations: per 32-pixel output word, the disc's rows of half-width
+    # 1, 2, 3, 3, 3, 2, 1 are 2 x 15 funnel shifts and as many ORs, 6 ORs
+    # across rows, the same with AND for the erosion, one AND with the
+    # clip: 133 integer operations
+    words = B * H * ((W + 31) // 32)
+    b, by = bound_ms(3 * n, 133 * words, INT32_OPS_PER_S)
     r = dict(max_abs_err=0.0,
              ms=cuda_ms(torch, lambda: binary_closing(m, c)),
              plain_ms=cuda_ms(torch, lambda: binary_closing_reference(m, c)),
              bound_ms=b, bound_by=by, library_ms=None)
     print(f"binary_closing: bit-equal to plain over {len(cases)} cases "
           f"(densities 0/0.3/0.75/1, 7 clip boxes, the survey's masks "
-          f"({int(real_mask.sum())} px set), odd shapes); ({B}, {H}, {W}) "
-          f"bool: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"({int(real_mask.sum())} px set), odd shapes, word edges); "
+          f"({B}, {H}, {W}) "
+          f"bool: kernel {r['ms']:.4f} ms (wrapper's host time "
+          f"{host_ms(lambda: binary_closing(m, c)):.4f} ms a call), plain "
+          f"{r['plain_ms']:.4f} ms, "
           f"bound {b:.4f} ms ({by}) [{card}]")
     return r
 
@@ -681,7 +799,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ech_dir, reader, cfg = main_setup(torch, Path(tmp))
         if 2 in phases:
-            kernels = phase_kernels(torch, card, reader, cfg)
+            kernels = phase_kernels(torch, cuda_lib, card, reader, cfg)
         if 3 in phases:
             phase_agreement(torch, Path(tmp))
         if 4 in phases:

@@ -89,6 +89,47 @@ def test_gather_db_kernel_matches_plain(cuda, dtype):
     assert cuda_lib.launches["gather_db"] == before + 8
 
 
+def _at_offset(t, offset):
+    """A contiguous copy of ``t`` starting ``offset`` elements into its
+    storage, so its address is off the kernels' vector alignment."""
+    buf = torch.zeros(t.numel() + offset, dtype=t.dtype, device=t.device)
+    buf[offset:] = t.reshape(-1)
+    return buf[offset:].view(t.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.uint8])
+@pytest.mark.parametrize("cf", [1, 2, 3, 4])
+def test_gather_db_kernel_narrow_paths_match_plain(cuda, dtype, cf):
+    """Cf 1-4, odd and even start columns (negative and past the slab's
+    right edge too), windows 31 and 13 wide (rows not a multiple of the
+    kernel's 8-element runs), and a slab off 16-byte alignment: the
+    narrow-load and element-wise paths of csrc/gather_db.cu."""
+    rng = np.random.RandomState(20 + cf)
+    raw = np.ascontiguousarray(_raw_slab(rng)[:70, :, :cf])
+    slab = torch.from_numpy(_quantize_db_u8(raw)) if dtype == torch.uint8 \
+        else torch.from_numpy(raw).to(dtype)
+    slab = slab.to(cuda)
+    before = cuda_lib.launches["gather_db"]
+    calls = 0
+    for ww in (31, 13):
+        y0s = torch.from_numpy(rng.randint(-2, HP - 20, 9).astype(
+            np.int32)).to(cuda)
+        x0s = torch.tensor([0, 1, 2, 3, 5, 64, -3, WP - ww, WP - ww + 4],
+                           dtype=torch.int32, device=cuda)
+        for s in (slab, _at_offset(slab, 1)):
+            for border in (None, (9, 60, 6, 120)):
+                for out_dtype in (torch.float32, torch.bfloat16):
+                    args = (s, y0s, x0s, (24, ww), border, False, out_dtype)
+                    got = gather_db(*args)
+                    want = gather_db_reference(*args)
+                    torch.cuda.synchronize()
+                    _assert_within_one_ulp(got.cpu(), want.cpu())
+                    calls += 1
+    assert cuda_lib.launches["gather_db"] == before + calls
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 16, 32, 64), (3, 6, 10, 5)])
@@ -141,3 +182,49 @@ def test_closing_kernel_bit_equal_plain(cuda, shape):
         torch.cuda.synchronize()
         assert got.dtype == torch.bool and torch.equal(got, want), density
     assert cuda_lib.launches["binary_closing"] == before + 4
+
+
+def _closing_matches_plain(mask, clip):
+    got = binary_closing(mask, clip)
+    want = binary_closing_reference(mask, clip)
+    torch.cuda.synchronize()
+    return got.dtype == torch.bool and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [1, 6, 7, 33])
+@pytest.mark.parametrize("W", [31, 32, 33, 63, 64, 65, 255, 256, 257])
+def test_closing_kernel_word_boundary_shapes(cuda, W, H):
+    """Where csrc/closing.cu's 32-pixel words and 32-row bands end; each
+    also at an address off 16 bytes (the byte-gather path)."""
+    rng = np.random.RandomState(1000 * H + W)
+    mask = torch.from_numpy(np.stack([rng.rand(H, W) < d
+                                      for d in (0.3, 0.6, 0.9)]))
+    clip = torch.ones_like(mask)
+    clip[1, :, :W - W % 32] = False
+    clip[2, H // 3:, 1:W - 1] = False
+    mask, clip = mask.to(cuda), clip.to(cuda)
+    before = cuda_lib.launches["binary_closing"]
+    assert _closing_matches_plain(mask, clip)
+    assert _closing_matches_plain(_at_offset(mask, 1), _at_offset(clip, 3))
+    assert cuda_lib.launches["binary_closing"] == before + 2
+
+
+@pytest.mark.gpu
+def test_closing_kernel_word_edges(cuda):
+    """One set pixel and one hole at each of columns 29-35, and clip
+    boxes ending on a word edge +-1."""
+    for x in range(29, 36):
+        mask = torch.zeros((2, 12, 64), dtype=torch.bool)
+        mask[0, 6, x] = True
+        mask[1] = True
+        mask[1, 6, x] = False
+        mask = mask.to(cuda)
+        assert _closing_matches_plain(mask, torch.ones_like(mask)), x
+    g = torch.Generator().manual_seed(17)
+    for edge in (31, 32, 33, 63, 64, 65):
+        mask = torch.rand((2, 40, 96), generator=g) < 0.6
+        clip = torch.zeros_like(mask)
+        clip[0, 3:37, 2:edge] = True
+        clip[1, :, edge:] = True
+        assert _closing_matches_plain(mask.to(cuda), clip.to(cuda)), edge

@@ -81,6 +81,52 @@ def test_plain_closing_unclipped_mask_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
+def _assert_closing_matches_jax(masks, clip):
+    """binary_closing_reference bit-equal to the Pallas kernel (interpret
+    mode) and to the JAX conv formulation."""
+    got = binary_closing_reference(torch.from_numpy(masks),
+                                   torch.from_numpy(clip)).numpy()
+    m, c = jnp.asarray(masks), jnp.asarray(clip)
+    np.testing.assert_array_equal(got, np.asarray(
+        binary_closing_pallas(m, c, interpret=True)))
+    np.testing.assert_array_equal(got, np.asarray(
+        jax_morphology.binary_closing(m, clip_mask=c)))
+
+
+# the widths and heights where the CUDA kernel's 32-pixel words and
+# 32-row bands end (csrc/closing.cu), below the disc's size included
+@pytest.mark.parametrize("H", [1, 6, 7, 33])
+@pytest.mark.parametrize("W", [31, 32, 33, 63, 64, 65, 255, 256, 257])
+def test_plain_closing_word_boundary_shapes_match_jax(W, H):
+    rng = np.random.RandomState(1000 * H + W)
+    masks = np.stack([rng.rand(H, W) < d for d in (0.3, 0.6, 0.9)])
+    clip = np.ones_like(masks)
+    clip[1, :, :W - W % 32] = False          # the last, partial word
+    clip[2, H // 3:, 1:W - 1] = False
+    _assert_closing_matches_jax(masks, clip)
+
+
+@pytest.mark.parametrize("x", range(29, 36))
+def test_plain_closing_pixel_at_word_edge_matches_jax(x):
+    """One set pixel (closes to itself) and one hole (closes shut) at
+    columns 29-35, across the first word boundary."""
+    masks = np.zeros((2, 12, 70), bool)
+    masks[0, 6, x] = True
+    masks[1] = True
+    masks[1, 6, x] = False
+    _assert_closing_matches_jax(masks, np.ones_like(masks))
+
+
+@pytest.mark.parametrize("edge", [31, 32, 33, 63, 64, 65])
+def test_plain_closing_clip_on_word_edge_matches_jax(edge):
+    rng = np.random.RandomState(edge)
+    masks = rng.rand(2, 40, 96) < 0.6
+    clip = np.zeros_like(masks)
+    clip[0, 3:37, 2:edge] = True
+    clip[1, :, edge:] = True
+    _assert_closing_matches_jax(masks, clip)
+
+
 def test_wrapper_on_cpu_is_the_plain_version():
     rng = np.random.RandomState(7)
     B, H, W = 7, 37, 45

@@ -73,6 +73,24 @@ def test_gather_db_plain_matches_pallas(scaled):
     _assert_close_nan(got, want)
 
 
+@pytest.mark.parametrize("cf", [1, 3])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_gather_db_plain_matches_pallas_narrow_window(cf, scaled):
+    """Cf 1 and 3 with a 31-wide window at odd and even start columns:
+    rows that start off the CUDA kernel's vector alignment."""
+    rng = np.random.RandomState(10 + cf)
+    slab = _raw_slab(rng)[:, :, :cf]
+    win = (32, 31)
+    y0s = rng.randint(0, HP - win[0] + 1, 8).astype(np.int32)
+    x0s = np.array([0, 1, 2, 3, 33, 64, 95, WP - win[1]], np.int32)
+    want = np.asarray(gather_db_pallas(
+        jnp.asarray(slab.transpose(2, 0, 1)), jnp.asarray(y0s),
+        jnp.asarray(x0s), win, scaled=scaled, interpret=True))
+    got = gather_db(_t(slab), _t(y0s), _t(x0s), win, scaled=scaled).numpy()
+    assert got.shape == (8, 32, 31, cf) and got.dtype == np.float32
+    _assert_close_nan(got, want)
+
+
 def _runner_formulation(slab, y0s, x0s, hp, border, scaled):
     """The JAX runner's front end (runner.py:329-358): zero-pad the
     shipped rows back to the grid height, dynamic_slice gather from the
