@@ -26,7 +26,10 @@ raises and the script exits nonzero without its result line:
    echogram through the whole predict path (BatchNorm folded and
    unfolded: identical write masks, probabilities within 2 float16 ulp)
    and through gridded evaluation (modes all, region, trace: identical
-   per-class pixel counts, max-F1 and AP within 2e-3);
+   per-class pixel counts, max-F1 and AP within 2e-3); then the same
+   checks on a small zarr survey (prediction with float32 and bfloat16
+   transfer, the latter through the codec's converting decode where it
+   is built, and evaluation in the three modes);
 4. the prediction main path at full width: ``run_save_predictions`` on a
    seeded 1000 x 4000 x 4 memmap echogram with the flagship U-Net (depth
    5, start_filts 64, seeded random weights, bfloat16, patch 256 /
@@ -37,9 +40,23 @@ raises and the script exits nonzero without its result line:
    same survey (eval_mode all, bfloat16 transfer, BatchNorm folded): a
    warm-up, a timed run with the launch counters reset just before and
    read just after, then a region run;
-6. one JSON line naming every kernel with its phase-2 numbers and its
-   launches on the main path that runs it (K1-K3 phase 4, K4 phase 5),
-   then the last line ``{"ok": true, "device": {...}}``.
+6. the zarr prediction main path at full width: a seeded 1000 x 4000 x 4
+   zarr survey (the port's ``make_zarr_survey`` with the JAX package's
+   bench.py parameters: seed 3, 24 schools) through
+   ``save_survey_predictions_zarr`` (a warm-up, a timed run, a profiled
+   run) and then one ``dockerscript.main()`` run through the
+   MODELWEIGHTS / SURVEY_PATH / OUTPUT_DIR / PRED_FILE overrides with no
+   CONFIG_PATH (the flagship defaults); each store is read back and
+   checked, and the codec backend and the compressors are printed;
+7. the zarr evaluation path at full width: ``evaluate_reader`` (mode
+   all) on the same zarr survey, a warm-up and a timed run;
+8. one JSON line naming every kernel with its phase-2 numbers, its
+   launches on the main path that runs it (K1-K3 phase 4, K4 phase 5)
+   and its launches on every path (``launches_by_path``), then the last
+   line ``{"ok": true, "device": {...}}``.
+
+Every path is driven with the launch counters set to 0 just before it
+and read just after.
 """
 
 from __future__ import annotations
@@ -501,10 +518,11 @@ def _predict_one(cfg, state_dict, reader, device):
     from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
     import numpy as np
     runner = GriddedRunner(build_unet(cfg), state_dict, cfg, device=device)
-    n_range, n_pings = reader.shape
+    n_range, n_pings = reader.shape[::-1] if reader.data_format == "zarr" \
+        else reader.shape
     out = np.zeros((2, n_range, n_pings), np.float16)
-    for s, e, chunk in predict_reader(runner, reader,
-                                      cfg["preload_n_pings"]):
+    for s, e, chunk, _ in predict_reader(runner, reader,
+                                         cfg["preload_n_pings"]):
         out[:, :, s:e] = chunk
     return out
 
@@ -531,26 +549,47 @@ def phase_agreement(torch, tmp):
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         for fold in (True, False):
-            c = dict(cfg, fold_bn=fold)
-            cpu = _predict_one(c, sd, reader, "cpu")
-            gpu = _predict_one(c, sd, reader, "cuda")
-            check(np.array_equal(cpu == 0, gpu == 0),
-                  f"write masks differ CPU vs card (fold_bn {fold})")
-            check((cpu != 0).any(), "nothing written")
-            a, b = cpu.astype(np.float32), gpu.astype(np.float32)
-            ulp = np.spacing(np.maximum(np.abs(cpu), np.abs(gpu))).astype(
-                np.float32)
-            diff = np.abs(a - b)
-            check(np.all(diff <= 2 * ulp),
-                  f"probabilities differ by more than 2 f16 ulp (fold_bn "
-                  f"{fold}): {int((diff > 2 * ulp).sum())} px, "
-                  f"max {diff.max()}")
-            print(f"agreement (fold_bn {fold}): masks identical, max |dprob| "
-                  f"{diff.max()} over {int((cpu != 0).sum())} written px")
+            predict_agreement(dict(cfg, fold_bn=fold), sd, reader,
+                              f"fold_bn {fold}")
         eval_agreement(torch, dict(cfg, fold_bn=True), sd, reader)
+        # the zarr survey: its reader, slab extents, seabed band law and
+        # (eval) no border zeroing; bfloat16 transfer takes the codec's
+        # converting decode where the native library is built
+        from crimac_unet_tpu_torch.data import blosc_codec
+        from crimac_unet_tpu_torch.data.fixtures import make_zarr_survey
+        from crimac_unet_tpu_torch.data.zarr_reader import DataReaderZarr
+        zreader = DataReaderZarr(make_zarr_survey(
+            tmp / "small_zarr", year=2017, n_echograms=1, H=200, W=600,
+            seed=SEED))
+        print(f"small zarr survey: codec backend {blosc_codec.backend()}, "
+              f"sv compressor {zreader.sv.compressor}")
+        for transfer in ("float32", "bfloat16"):
+            predict_agreement(dict(cfg, transfer_dtype=transfer), sd,
+                              zreader, f"zarr, {transfer} transfer")
+        eval_agreement(torch, dict(cfg, fold_bn=True), sd, zreader)
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def predict_agreement(cfg, sd, reader, label):
+    """The predict path on the CPU (plain versions) and on the card
+    (kernels): identical write masks, probabilities within 2 float16
+    ulp."""
+    import numpy as np
+    cpu = _predict_one(cfg, sd, reader, "cpu")
+    gpu = _predict_one(cfg, sd, reader, "cuda")
+    check(np.array_equal(cpu == 0, gpu == 0),
+          f"write masks differ CPU vs card ({label})")
+    check((cpu != 0).any(), f"nothing written ({label})")
+    a, b = cpu.astype(np.float32), gpu.astype(np.float32)
+    ulp = np.spacing(np.maximum(np.abs(cpu), np.abs(gpu))).astype(np.float32)
+    diff = np.abs(a - b)
+    check(np.all(diff <= 2 * ulp),
+          f"probabilities differ by more than 2 f16 ulp ({label}): "
+          f"{int((diff > 2 * ulp).sum())} px, max {diff.max()}")
+    print(f"agreement ({label}): masks identical, max |dprob| "
+          f"{diff.max()} over {int((cpu != 0).sum())} written px")
 
 
 def _curve_scores(hist):
@@ -586,7 +625,8 @@ def eval_agreement(torch, cfg, sd, reader):
         (f_c, ap_c), (f_g, ap_g) = _curve_scores(cpu), _curve_scores(gpu)
         check(abs(f_c - f_g) < 2e-3 and abs(ap_c - ap_g) < 2e-3,
               f"eval {mode}: F1 {f_c} vs {f_g}, AP {ap_c} vs {ap_g}")
-        print(f"eval agreement ({mode}): per-class counts identical "
+        print(f"eval agreement ({reader.data_format}, {mode}): per-class "
+              f"counts identical "
               f"{cpu.sum(axis=1).tolist()}, |dF1| {abs(f_c - f_g):.3g}, "
               f"|dAP| {abs(ap_c - ap_g):.3g}")
 
@@ -711,6 +751,8 @@ def phase_main(torch, cuda_lib, ech_dir, reader, cfg, card):
     print(runner.timer.report())
     profile_run(torch, lambda: run(runner, "profiled run")[2], card)
 
+    by_path = {"memm_predict": counts}
+
     # unfolded BatchNorm (fold_bn: false): gather_db + maxpool2x2
     runner = GriddedRunner(build_unet(cfg), sd, dict(cfg, fold_bn=False))
     counts, fwd, _ = run(runner, "main path, BatchNorm unfolded")
@@ -718,7 +760,8 @@ def phase_main(torch, cuda_lib, ech_dir, reader, cfg, card):
           and counts["maxpool2x2"] == fwd and counts["relu_pool_skip"] == 0,
           f"unfolded run: launches {counts} for {fwd} forwards")
     launches["maxpool2x2"] = counts["maxpool2x2"]
-    return launches, n_pings / dt
+    by_path["memm_predict_unfolded"] = counts
+    return launches, n_pings / dt, by_path
 
 
 # --------------------------------------------------------------- phase 5
@@ -776,13 +819,188 @@ def phase_eval(torch, cuda_lib, ech_dir, reader, cfg, card):
     r_counts, r_fwd, _ = run("region", "eval, mode region")
     check(r_fwd > 0 and r_counts["binary_closing"] == r_fwd,
           f"region run: launches {r_counts} for {r_fwd} sub-batches")
-    return counts["binary_closing"], n_pings / dt
+    return counts, n_pings / dt
+
+
+# --------------------------------------------------------------- phase 6
+def zarr_setup(torch, tmp):
+    """The zarr paths' survey: the JAX package's bench.py survey (1000
+    range x 4000 pings x 4 frequencies, seed 3, 24 schools) written by the
+    port's fixture, and the codec that serves it."""
+    from crimac_unet_tpu_torch.data import blosc_codec
+    from crimac_unet_tpu_torch.data.fixtures import make_zarr_survey
+    from crimac_unet_tpu_torch.data.zarr_reader import DataReaderZarr
+
+    t0 = time.perf_counter()
+    sv = make_zarr_survey(tmp / "zarr", year=2017, n_echograms=1, H=1000,
+                          W=4000, seed=3, n_schools=24)
+    reader = DataReaderZarr(sv)
+    reader.get_seabed(0, None)       # the bottom-store scan, once
+    native = blosc_codec.scatter_available()
+    print(f"zarr survey {reader.shape} (pings, range) x "
+          f"{len(reader.frequencies)} written in "
+          f"{time.perf_counter() - t0:.1f} s; codec backend "
+          f"{blosc_codec.backend()}"
+          + ("" if native else f" (native chunkio not built: "
+                               f"{str(blosc_codec.build_error).strip()[-300:]})"))
+    print(f"sv store compressor: {reader.sv.compressor}")
+    return sv, reader
+
+
+def _check_store(path, n_pings, n_range, label):
+    import numpy as np
+    from crimac_unet_tpu_torch.data.zarrlite import ZGroup
+    g = ZGroup.open(path)
+    ann = g["annotation"]
+    check(ann.shape == (2, n_pings, n_range) and ann.dtype == np.float16,
+          f"{label}: annotation {ann.shape} {ann.dtype}")
+    check(list(g["category"][:]) == [27, 1],
+          f"{label}: category {g['category'][:]}")
+    check(g["ping_time"].shape == (n_pings,), f"{label}: ping_time "
+                                              f"{g['ping_time'].shape}")
+    pred = ann[:]
+    check(np.isfinite(pred).all() and pred.min() >= 0 and pred.max() <= 1,
+          f"{label}: prediction not in [0, 1]")
+    check((pred != 0).any(), f"{label}: nothing written")
+    return pred, ann.compressor
+
+
+def phase_zarr_main(torch, cuda_lib, tmp, sv, reader, cfg, card):
+    """The zarr prediction main path at full width through
+    ``save_survey_predictions_zarr``, then the docker entry."""
+    import os
+    import numpy as np
+    from crimac_unet_tpu_torch.models.unet import build_unet, init_random_
+    from crimac_unet_tpu_torch.pipeline import dockerscript
+    from crimac_unet_tpu_torch.pipeline.predict import \
+        save_survey_predictions_zarr
+    from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
+
+    cfg = dict(cfg, data_mode="zarr")
+    sd = init_random_(build_unet(cfg), torch.Generator().manual_seed(
+        SEED)).state_dict()
+    n_pings, n_range = reader.shape
+    target = str(tmp / "zarr_out" / f"{reader.name}_pred.zarr")
+    runner = GriddedRunner(build_unet(cfg), sd, cfg)
+
+    def run(label):
+        cuda_lib.reset_launches()
+        f0 = runner.forwards
+        t = time.perf_counter()
+        save_survey_predictions_zarr(runner, reader, target,
+                                     preload_n_pings=cfg["preload_n_pings"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts, fwd = dict(cuda_lib.launches), runner.forwards - f0
+        pred, comp = _check_store(target, n_pings, n_range, label)
+        print(f"{label}: {fwd} forwards, launches {counts}, {dt:.3f} s = "
+              f"{n_pings / dt:.1f} pings/s, written px "
+              f"{int((pred[0] != 0).sum())}, store compressor {comp} "
+              f"[{card}]")
+        return counts, fwd, dt, pred
+
+    run("zarr warm-up (cuDNN plans, allocator)")
+    runner.timer.reset()
+    counts, fwd, dt, pred = run("zarr main path, BatchNorm folded")
+    check(fwd > 0 and counts["gather_db"] == fwd
+          and counts["relu_pool_skip"] == fwd and counts["maxpool2x2"] == 0,
+          f"zarr run: launches {counts} for {fwd} forwards")
+    print(f"PhaseTimer, zarr main path [{card}]:")
+    print(runner.timer.report())
+    profile_run(torch, lambda: run("zarr profiled run")[2], card)
+
+    # the docker entry: no config file (the flagship defaults), the same
+    # seeded weights as a reference .pt
+    ckpt = tmp / "zarr_model.pt"
+    torch.save(sd, ckpt)
+    env = {"MODELWEIGHTS": str(ckpt), "SURVEY_PATH": sv,
+           "OUTPUT_DIR": str(tmp / "docker_out"), "PRED_FILE": "pred.zarr"}
+    saved = {k: os.environ.get(k) for k in list(env) + ["CONFIG_PATH"]}
+    os.environ.update(env)
+    os.environ.pop("CONFIG_PATH", None)
+    try:
+        cuda_lib.reset_launches()
+        t = time.perf_counter()
+        docker_runner = dockerscript.main()
+        torch.cuda.synchronize()
+        ddt = time.perf_counter() - t
+        d_counts = dict(cuda_lib.launches)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    d_fwd = docker_runner.forwards
+    check(d_fwd > 0 and d_counts["gather_db"] == d_fwd
+          and d_counts["relu_pool_skip"] == d_fwd,
+          f"docker run: launches {d_counts} for {d_fwd} forwards")
+    d_pred, _ = _check_store(tmp / "docker_out" / "pred.zarr", n_pings,
+                             n_range, "docker entry")
+    # the same weights and geometry: the same write mask, probabilities
+    # within 2 float16 ulp (bit-equal unless cuDNN picks another algorithm)
+    check(np.array_equal(d_pred == 0, pred == 0),
+          "docker entry's write mask differs from the main path's")
+    diff = np.abs(d_pred.astype(np.float32) - pred.astype(np.float32))
+    ulp = np.spacing(np.maximum(np.abs(d_pred), np.abs(pred))).astype(
+        np.float32)
+    check(np.all(diff <= 2 * ulp), f"docker entry's probabilities differ "
+                                   f"from the main path's: max {diff.max()}")
+    print(f"docker entry (no CONFIG_PATH, flagship defaults): {d_fwd} "
+          f"forwards, launches {d_counts}, {ddt:.3f} s = "
+          f"{n_pings / ddt:.1f} pings/s including its model build; write "
+          f"mask equal to the main path's, max |dprob| {diff.max()} "
+          f"[{card}]")
+    return counts, d_counts, n_pings / dt
+
+
+# --------------------------------------------------------------- phase 7
+def phase_zarr_eval(torch, cuda_lib, reader, cfg, card):
+    """Zarr evaluation at full width: ``evaluate_reader`` (mode all)."""
+    from crimac_unet_tpu_torch.models.unet import build_unet, init_random_
+    from crimac_unet_tpu_torch.ops import metrics
+    from crimac_unet_tpu_torch.pipeline.eval_gridded import evaluate_reader
+    from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
+
+    cfg = dict(cfg, data_mode="zarr", transfer_dtype="bfloat16")
+    sd = init_random_(build_unet(cfg), torch.Generator().manual_seed(
+        SEED)).state_dict()
+    runner = GriddedRunner(build_unet(cfg), sd, cfg)
+    n_pings = reader.shape[0]
+
+    def run(label):
+        cuda_lib.reset_launches()
+        f0 = runner.forwards
+        t = time.perf_counter()
+        hist = evaluate_reader(runner, reader, metrics.new_histogram(
+            runner.device), eval_mode="all", chunk_cols=EVAL_CHUNK_COLS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts, fwd = dict(cuda_lib.launches), runner.forwards - f0
+        f1, ap = _curve_scores(hist)
+        check(hist[0].sum() > 0 and hist[1].sum() > 0 and 0 <= f1 <= 1,
+              f"{label}: counts {hist.sum(axis=1)}, F1 {f1}")
+        print(f"{label}: {fwd} sub-batches, launches {counts}, {dt:.3f} s "
+              f"= {n_pings / dt:.1f} pings/s, per-class counts "
+              f"{hist.sum(axis=1).tolist()}, max F1 {f1:.6f} [{card}]")
+        return counts, fwd, dt
+
+    run("zarr eval warm-up (cuDNN plans, allocator)")
+    runner.timer.reset()
+    counts, fwd, dt = run("zarr eval, mode all")
+    check(fwd > 0 and counts["binary_closing"] == fwd
+          and counts["relu_pool_skip"] == fwd and counts["gather_db"] == 0
+          and counts["maxpool2x2"] == 0,
+          f"zarr eval run: launches {counts} for {fwd} sub-batches")
+    print(f"PhaseTimer, zarr eval [{card}]:")
+    print(runner.timer.report())
+    return counts, n_pings / dt
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5",
-                    help="comma-separated subset of phases 1-5")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+                    help="comma-separated subset of phases 1-7")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -795,29 +1013,44 @@ def main(argv=None) -> int:
     from crimac_unet_tpu_torch.ops import cuda_lib
 
     card = phase_card(torch, cuda_lib)
-    kernels, launches, pings_per_s, eval_pings_per_s = {}, {}, None, None
+    kernels, launches, by_path, rates = {}, {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        ech_dir, reader, cfg = main_setup(torch, Path(tmp))
+        tmp = Path(tmp)
+        ech_dir, reader, cfg = main_setup(torch, tmp)
         if 2 in phases:
             kernels = phase_kernels(torch, cuda_lib, card, reader, cfg)
         if 3 in phases:
-            phase_agreement(torch, Path(tmp))
+            phase_agreement(torch, tmp)
         if 4 in phases:
-            launches, pings_per_s = phase_main(torch, cuda_lib, ech_dir,
-                                               reader, cfg, card)
-        if 5 in phases:
-            launches["binary_closing"], eval_pings_per_s = phase_eval(
+            launches, rates["memm prediction"], paths = phase_main(
                 torch, cuda_lib, ech_dir, reader, cfg, card)
+            by_path.update(paths)
+        if 5 in phases:
+            by_path["memm_eval"], rates["memm evaluation"] = phase_eval(
+                torch, cuda_lib, ech_dir, reader, cfg, card)
+            launches["binary_closing"] = \
+                by_path["memm_eval"]["binary_closing"]
+        if phases & {6, 7}:
+            sv, zreader = zarr_setup(torch, tmp)
+        if 6 in phases:
+            (by_path["zarr_predict"], by_path["zarr_docker"],
+             rates["zarr prediction"]) = phase_zarr_main(
+                torch, cuda_lib, tmp, sv, zreader, cfg, card)
+        if 7 in phases:
+            by_path["zarr_eval"], rates["zarr evaluation"] = \
+                phase_zarr_eval(torch, cuda_lib, zreader, cfg, card)
     if phases >= {2, 4, 5}:
         for name in KERNELS:
             check(launches.get(name, 0) > 0,
                   f"{name} was not launched on the main path")
         print(json.dumps({"kernels": [
             dict(name=name, route="cuda", **KERNELS[name],
-                 launches=launches[name], **kernels[name])
+                 launches=launches[name], **kernels[name],
+                 launches_by_path={p: c[name] for p, c in by_path.items()})
             for name in KERNELS]}))
-        print(f"main paths: prediction {pings_per_s:.1f} pings/s, "
-              f"evaluation {eval_pings_per_s:.1f} pings/s [{card}]")
+        print("main paths: " + ", ".join(
+            f"{k} {v:.1f} pings/s" for k, v in rates.items())
+            + f" [{card}]")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,579 @@
+"""Blosc (v1 frame format) codec for the zarrlite data plane.
+
+The port's copy of the JAX package's ``crimac_unet_tpu/data/
+blosc_codec.py``, with the same three backends and semantics; only the
+native build differs (below).
+
+Real CRIMAC survey stores are Blosc-compressed zarr v2: the reference
+writes predictions with ``Blosc(cname="zstd", clevel=3,
+shuffle=Blosc.BITSHUFFLE)`` (reference
+pipeline_train_predict/save_predict.py:128) and the xarray-written
+``_sv.zarr`` / ``_labels.zarr`` / ``_bottom.zarr`` triplets it reads
+(data_reader.py:516-575) default to Blosc-lz4.  This module decodes and
+encodes those frames through three backends, best-first:
+
+  1. ``chunkio``  — the native C++ library
+     (``crimac_unet_tpu_torch/native/chunkio.cc``), built at first use
+     with ``g++ -O3 -fPIC -shared -std=c++17 ... -l:libblosc.so.1
+     -lpthread`` into ``.kernel_build/`` beside the package: adds a
+     GIL-free multi-threaded *batch* decode and the decode + scatter
+     into the HWC slab used for slab reads.
+  2. ``libblosc`` — ctypes directly on ``libblosc.so.1`` (ctx API, no
+     global state; the foreign call releases the GIL).
+  3. ``pure``     — a from-the-spec numpy decoder (decode only) covering
+     memcpy/LZ4/zlib frames with byte- and bit-shuffle; it exists so the
+     format is readable without any binary dependency (a host without
+     libblosc then writes new stores with zlib, zarrlite.py).  It is
+     cross-checked bit-exactly against libblosc in the tests.
+
+Which backend serves is a host-side codec choice: :func:`backend` names
+it, and the entry points that read stores print it.
+
+Frame layout (c-blosc 1.x, little-endian):
+
+  byte  0      format version
+  byte  1      codec format version
+  byte  2      flags: bit0 byte-shuffle, bit1 memcpyed, bit2 bit-shuffle,
+               bit4 dont_split, bits 5-7 codec id
+               (0 blosclz, 1 lz4/lz4hc, 2 snappy, 3 zlib, 4 zstd)
+  byte  3      typesize
+  bytes 4-7    nbytes   (uncompressed size)
+  bytes 8-11   blocksize
+  bytes 12-15  cbytes   (total frame size)
+  then, unless memcpyed: int32 bstarts[nblocks] (absolute frame offsets),
+  and per block either one stream (dont_split or the leftover block) or
+  ``typesize`` streams, each an int32 compressed-size prefix + payload
+  (size == stream length means stored uncompressed).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import struct
+import subprocess
+import tempfile
+import threading
+import zlib
+from pathlib import Path
+
+import numpy as np
+
+# shuffle API constants (python-blosc / numcodecs convention)
+NOSHUFFLE = 0
+SHUFFLE = 1
+BITSHUFFLE = 2
+
+# header flag bits
+_FLAG_BYTESHUFFLE = 0x1
+_FLAG_MEMCPYED = 0x2
+_FLAG_BITSHUFFLE = 0x4
+_FLAG_DONT_SPLIT = 0x10
+
+_CODEC_NAMES = {0: "blosclz", 1: "lz4", 2: "snappy", 3: "zlib", 4: "zstd"}
+
+_MIN_HEADER = 16
+_MAX_OVERHEAD = 16  # BLOSC_MAX_OVERHEAD
+
+
+def parse_header(frame: bytes) -> dict:
+    """Parse the 16-byte blosc1 frame header (format spec above)."""
+    if len(frame) < _MIN_HEADER:
+        raise ValueError(f"blosc frame too short: {len(frame)} bytes")
+    version, versionlz, flags, typesize = frame[0], frame[1], frame[2], frame[3]
+    nbytes, blocksize, cbytes = struct.unpack_from("<iii", frame, 4)
+    if nbytes < 0 or cbytes < 0 or blocksize < 0:
+        raise ValueError("corrupt blosc header (negative sizes)")
+    return {
+        "version": version,
+        "versionlz": versionlz,
+        "flags": flags,
+        "typesize": typesize,
+        "nbytes": nbytes,
+        "blocksize": blocksize,
+        "cbytes": cbytes,
+        "codec": _CODEC_NAMES.get((flags >> 5) & 0x7, "unknown"),
+        "memcpyed": bool(flags & _FLAG_MEMCPYED),
+        "byteshuffle": bool(flags & _FLAG_BYTESHUFFLE),
+        "bitshuffle": bool(flags & _FLAG_BITSHUFFLE),
+        "dont_split": bool(flags & _FLAG_DONT_SPLIT),
+    }
+
+
+# =========================================================== binary backends
+_lock = threading.Lock()
+_chunkio = None       # native C++ lib (or False after a failed probe)
+_libblosc = None      # plain ctypes libblosc (or False)
+
+_SRC = Path(__file__).resolve().parent.parent / "native" / "chunkio.cc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / ".kernel_build"
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
+build_error = ""       # why the native library is unavailable, if it is
+
+
+def library_path() -> Path:
+    """The built chunkio library: its name carries a hash of the source
+    and flags, so an edited source rebuilds and an unchanged one loads
+    the cached file."""
+    h = hashlib.sha256(_SRC.read_bytes() + " ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / f"libchunkio-{h.hexdigest()[:16]}.so"
+
+
+def _build(so: Path) -> None:
+    """g++ the source into ``so``; written under a temporary name and
+    renamed, so concurrent builds never load a half-written file."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    try:
+        subprocess.run([os.environ.get("CXX", "g++"), *CXX_FLAGS,
+                        str(_SRC), "-o", tmp, "-l:libblosc.so.1",
+                        "-lpthread"], check=True, capture_output=True,
+                       text=True, timeout=120)
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _load_chunkio():
+    """Load (building on demand) the native chunkio library."""
+    global _chunkio, build_error
+    if _chunkio is not None:
+        return _chunkio or None
+    with _lock:
+        if _chunkio is not None:
+            return _chunkio or None
+        if os.environ.get("CRIMAC_NO_NATIVE"):
+            _chunkio = False
+            build_error = "CRIMAC_NO_NATIVE is set"
+            return None
+        try:
+            so = library_path()
+            if not so.is_file():
+                _build(so)
+            lib = ctypes.CDLL(str(so))
+            lib.cio_version.restype = ctypes.c_char_p
+            lib.cio_decompress.restype = ctypes.c_int64
+            lib.cio_decompress.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                           ctypes.c_void_p, ctypes.c_int64]
+            lib.cio_compress.restype = ctypes.c_int64
+            lib.cio_compress.argtypes = [
+                ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_char_p, ctypes.c_int]
+            lib.cio_batch_decompress.restype = ctypes.c_int64
+            lib.cio_batch_decompress.argtypes = [
+                ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int]
+            lib.cio_batch_decompress_scatter.restype = ctypes.c_int64
+            lib.cio_batch_decompress_scatter.argtypes = [
+                ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_void_p, ctypes.c_int]
+            lib.cio_batch_decompress_scatter_cvt.restype = ctypes.c_int64
+            lib.cio_batch_decompress_scatter_cvt.argtypes = [
+                ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p),
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+                ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_void_p, ctypes.c_int]
+            lib.cio_version()  # smoke call
+            _chunkio = lib
+        except Exception as exc:  # no g++, no libblosc: a slower backend
+            build_error = getattr(exc, "stderr", None) or repr(exc)
+            _chunkio = False
+    return _chunkio or None
+
+
+def _load_libblosc():
+    """ctypes on the system libblosc (ctx API: no global state)."""
+    global _libblosc
+    if _libblosc is not None:
+        return _libblosc or None
+    with _lock:
+        if _libblosc is not None:
+            return _libblosc or None
+        try:
+            lib = ctypes.CDLL("libblosc.so.1")
+        except OSError:
+            try:
+                lib = ctypes.CDLL("libblosc.so")
+            except OSError:
+                _libblosc = False
+                return None
+        lib.blosc_decompress_ctx.restype = ctypes.c_int
+        lib.blosc_decompress_ctx.argtypes = [ctypes.c_void_p,
+                                             ctypes.c_void_p,
+                                             ctypes.c_size_t, ctypes.c_int]
+        lib.blosc_compress_ctx.restype = ctypes.c_int
+        lib.blosc_compress_ctx.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_size_t, ctypes.c_size_t,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
+            ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int]
+        _libblosc = lib
+    return _libblosc or None
+
+
+def backend() -> str:
+    if _load_chunkio() is not None:
+        return "chunkio"
+    if _load_libblosc() is not None:
+        return "libblosc"
+    return "pure"
+
+
+def available() -> bool:
+    """True when encode is possible (a binary backend is loadable);
+    decode additionally works backend-free for memcpy/LZ4/zlib frames."""
+    return backend() != "pure"
+
+
+# ================================================================ decompress
+def decompress(frame: bytes | bytearray | memoryview) -> bytes:
+    """One blosc frame -> raw bytes."""
+    frame = bytes(frame)
+    hdr = parse_header(frame)
+    out = np.empty(hdr["nbytes"], np.uint8)
+    decompress_into(frame, out)
+    return out.tobytes()
+
+
+def decompress_into(frame: bytes, dst: np.ndarray) -> None:
+    """Decode one frame into a preallocated contiguous array (any dtype;
+    byte size must equal the frame's nbytes)."""
+    hdr = parse_header(frame)
+    if not dst.flags["C_CONTIGUOUS"]:
+        raise ValueError("dst must be C-contiguous")
+    if dst.nbytes != hdr["nbytes"]:
+        raise ValueError(f"dst holds {dst.nbytes} bytes, frame decodes to "
+                         f"{hdr['nbytes']}")
+    lib = _load_chunkio()
+    if lib is not None:
+        rc = lib.cio_decompress(frame, len(frame),
+                                dst.ctypes.data, dst.nbytes)
+        if rc != hdr["nbytes"]:
+            raise ValueError(f"blosc decompress failed (rc={rc})")
+        return
+    lib = _load_libblosc()
+    if lib is not None:
+        rc = lib.blosc_decompress_ctx(frame, dst.ctypes.data, dst.nbytes, 1)
+        if rc != hdr["nbytes"]:
+            raise ValueError(f"blosc decompress failed (rc={rc})")
+        return
+    raw = _pure_decompress(frame, hdr)
+    dst.view(np.uint8).reshape(-1)[:] = np.frombuffer(raw, np.uint8)
+
+
+def batch_decompress_into(frames: list, dsts: list) -> None:
+    """Decode N frames into N preallocated contiguous arrays.  Uses the
+    native batch path (std::thread fan-out, zero Python per-chunk
+    overhead) when available, else a thread pool over the ctypes call
+    (which releases the GIL), else serial pure-python."""
+    if len(frames) != len(dsts):
+        raise ValueError(f"{len(frames)} frames for {len(dsts)} dsts")
+    for d in dsts:
+        # raw pointers go to native code: a non-contiguous view would be
+        # silently overwritten linearly from its first element, so this
+        # guard must survive python -O
+        if not d.flags["C_CONTIGUOUS"]:
+            raise ValueError("dst must be C-contiguous")
+    n = len(frames)
+    if n == 0:
+        return
+    lib = _load_chunkio()
+    if lib is not None:
+        # keep byte buffers alive for the duration of the call
+        bufs = [bytes(f) for f in frames]
+        srcs = (ctypes.c_void_p * n)(
+            *(ctypes.cast(ctypes.c_char_p(b), ctypes.c_void_p) for b in bufs))
+        src_sizes = (ctypes.c_int64 * n)(*(len(b) for b in bufs))
+        dptr = (ctypes.c_void_p * n)(*(d.ctypes.data for d in dsts))
+        dst_sizes = (ctypes.c_int64 * n)(*(d.nbytes for d in dsts))
+        results = (ctypes.c_int64 * n)()
+        failed = lib.cio_batch_decompress(n, srcs, src_sizes, dptr,
+                                          dst_sizes, results, 0)
+        # a frame must fill its destination EXACTLY: a valid frame whose
+        # nbytes is short of the chunk size would otherwise leave an
+        # uninitialized tail (the single-frame path raises for this too)
+        bad = [i for i in range(n)
+               if results[i] != dsts[i].nbytes]
+        if failed or bad:
+            raise ValueError(
+                f"blosc batch decompress failed/short for chunks "
+                f"{bad[:8]} (rc={results[bad[0]]}, "
+                f"wanted {dsts[bad[0]].nbytes})")
+        return
+    if _load_libblosc() is not None and n >= 4:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=min(8, n)) as ex:
+            list(ex.map(decompress_into, frames, dsts))
+        return
+    for f, d in zip(frames, dsts):
+        decompress_into(f, d)
+
+
+def scatter_available() -> bool:
+    """Whether the native decompress + scatter entry points (plain and
+    converting) are loaded — probe BEFORE collecting chunk frames, or an
+    unavailable backend costs a full read of every chunk file that the
+    fallback then re-reads."""
+    return _load_chunkio() is not None
+
+
+CVT_F32_BF16 = 1  # chunkio cvt code: float32 source -> bfloat16 bits
+
+
+def f32_to_bf16_bits(x) -> np.ndarray:
+    """float32 -> bfloat16 bit patterns (uint16), the law of chunkio's
+    ``f32_bits_to_bf16``: round to nearest even, Inf kept, NaN quieted
+    with its sign kept.  Equal to torch's ``float32 -> bfloat16`` on every
+    finite value; the converting decode's fallback when the native
+    scatter is not loaded."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    rne = ((u + np.uint32(0x7FFF) + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+    nan = (u & np.uint32(0x7FFFFFFF)) > np.uint32(0x7F800000)
+    quiet = ((u >> 16) | np.uint32(0x0040)).astype(np.uint16)
+    return np.where(nan, quiet, rne)
+
+
+def batch_decompress_scatter(frames, chunk_shape, itemsize, boxes,
+                             dst, dst_offsets, dst_strides, fill_bytes,
+                             cvt=0, max_threads=None):
+    """Decode N frames and scatter each frame's sub-box straight into a
+    strided destination array (one native pass: no intermediate chunk
+    buffer, no separate place/transpose copies).  Returns False ONLY when
+    the native entry point is unavailable (caller must use its fallback);
+    raises ValueError when any chunk fails to decode or the native entry
+    rejects the arguments.
+
+    frames        list of N bytes or None (None = missing chunk -> fill)
+    chunk_shape   logical chunk shape (elements), ndim <= 4
+    boxes         (N, 2, ndim) int64: per chunk [start, stop) sub-box
+    dst           the destination ndarray (any layout)
+    dst_offsets   (N,) int64 BYTE offset of each box's first element
+                  relative to dst's data pointer
+    dst_strides   (ndim,) int64 BYTE strides of dst, in CHUNK axis order
+    fill_bytes    DESTINATION-itemsize bytes used for missing chunks
+    cvt           0 = same-dtype scatter; CVT_F32_BF16 = decode float32
+                  chunks, write bfloat16 bits (``itemsize`` is then the
+                  DESTINATION itemsize, 2)
+    max_threads   worker-thread cap for the native fan-out; None reads
+                  the CRIMAC_CHUNKIO_THREADS env var (0/unset = one
+                  worker per hardware thread).
+    """
+    lib = _load_chunkio()
+    entry = "cio_batch_decompress_scatter" + ("_cvt" if cvt else "")
+    if lib is None:
+        return False
+    if cvt == CVT_F32_BF16 and itemsize != 2:
+        # the cvt entry writes 2-byte bf16; a wrong itemsize would build a
+        # wrong-size fill pattern and mis-stride missing-chunk fills
+        raise ValueError(f"cvt=CVT_F32_BF16 requires itemsize=2 "
+                         f"(destination bf16), got {itemsize}")
+    n = len(frames)
+    if n == 0:
+        return True
+    ndim = len(chunk_shape)
+    bufs = [None if f is None else bytes(f) for f in frames]
+    srcs = (ctypes.c_void_p * n)(
+        *(None if b is None else
+          ctypes.cast(ctypes.c_char_p(b), ctypes.c_void_p) for b in bufs))
+    src_sizes = (ctypes.c_int64 * n)(
+        *(0 if b is None else len(b) for b in bufs))
+    shape_arr = (ctypes.c_int64 * ndim)(*chunk_shape)
+    boxes = np.ascontiguousarray(boxes, dtype=np.int64)
+    b0 = np.ascontiguousarray(boxes[:, 0, :]).ravel()
+    b1 = np.ascontiguousarray(boxes[:, 1, :]).ravel()
+    offs = np.ascontiguousarray(dst_offsets, dtype=np.int64)
+    strides = (ctypes.c_int64 * ndim)(*dst_strides)
+    fill = ctypes.create_string_buffer(bytes(fill_bytes), itemsize)
+    # the two entry points share every argument except position 6 (the
+    # cvt code vs the plain itemsize) — dispatch through one call so a
+    # future argument change cannot silently diverge the paths
+    if max_threads is None:
+        try:
+            max_threads = int(os.environ.get("CRIMAC_CHUNKIO_THREADS", 0))
+        except ValueError:
+            max_threads = 0
+    failed = getattr(lib, entry)(
+        n, srcs, src_sizes, ndim, shape_arr, cvt if cvt else itemsize,
+        b0.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        b1.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        dst.ctypes.data,
+        offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        strides, fill, int(max_threads))
+    if failed < 0:
+        # distinct bad-args sentinel from the native entry (unsupported
+        # cvt code / ndim out of range) — NOT a decode failure
+        raise ValueError(f"blosc scatter decompress: native entry "
+                         f"rejected arguments (ndim={ndim}, cvt={cvt})")
+    if failed:
+        raise ValueError(f"blosc scatter decompress: {failed} chunk(s) "
+                         "failed to decode")
+    return True
+
+
+# ================================================================== compress
+def compress(data, typesize: int, clevel: int = 3,
+             shuffle: int = BITSHUFFLE, cname: str = "zstd") -> bytes:
+    """Raw bytes/array -> one blosc frame (the reference's prediction codec
+    is zstd-3 + BITSHUFFLE, save_predict.py:128)."""
+    if isinstance(data, np.ndarray):
+        data = np.ascontiguousarray(data).tobytes()
+    data = bytes(data)
+    nbytes = len(data)
+    dst = np.empty(nbytes + _MAX_OVERHEAD, np.uint8)
+    lib = _load_chunkio()
+    if lib is not None:
+        rc = lib.cio_compress(clevel, shuffle, typesize, data, nbytes,
+                              dst.ctypes.data, dst.nbytes,
+                              cname.encode(), 1)
+    else:
+        lib = _load_libblosc()
+        if lib is None:
+            raise RuntimeError(
+                "blosc encode needs libblosc (not found); write zlib "
+                "stores instead")
+        rc = lib.blosc_compress_ctx(clevel, shuffle, typesize, nbytes,
+                                    data, dst.ctypes.data, dst.nbytes,
+                                    cname.encode(), 0, 1)
+    if rc <= 0:
+        raise ValueError(f"blosc compress failed (rc={rc})")
+    return dst[:rc].tobytes()
+
+
+# ====================================================== pure-python decoder
+def _lz4_block_decompress(src: bytes, dst_size: int) -> bytes:
+    """LZ4 block format decode (literal+match token stream)."""
+    dst = bytearray()
+    i, n = 0, len(src)
+    while i < n:
+        token = src[i]
+        i += 1
+        lit = token >> 4
+        if lit == 15:
+            while True:
+                b = src[i]
+                i += 1
+                lit += b
+                if b != 255:
+                    break
+        dst += src[i:i + lit]
+        i += lit
+        if i >= n:
+            break  # final literal run has no match part
+        offset = src[i] | (src[i + 1] << 8)
+        i += 2
+        mlen = token & 0xF
+        if mlen == 15:
+            while True:
+                b = src[i]
+                i += 1
+                mlen += b
+                if b != 255:
+                    break
+        mlen += 4
+        start = len(dst) - offset
+        if offset >= mlen:
+            dst += dst[start:start + mlen]
+        else:  # overlapping match: byte-by-byte
+            for k in range(mlen):
+                dst.append(dst[start + k])
+    if len(dst) != dst_size:
+        raise ValueError(f"lz4 decoded {len(dst)} bytes, wanted {dst_size}")
+    return bytes(dst)
+
+
+def _byte_unshuffle(block: bytes, typesize: int) -> bytes:
+    """Invert blosc byte shuffle: typesize lanes -> interleaved elements;
+    the sub-element remainder is stored unshuffled at the tail."""
+    bsize = len(block)
+    vec = bsize - bsize % typesize
+    arr = np.frombuffer(block[:vec], np.uint8)
+    out = arr.reshape(typesize, vec // typesize).T.reshape(-1)
+    return out.tobytes() + block[vec:]
+
+
+def _bit_unshuffle(block: bytes, typesize: int) -> bytes:
+    """Invert blosc bitshuffle: (8*typesize) packed bit-planes of nelem
+    bits each -> elements.  c-blosc 1.x only bitshuffles a block when its
+    element count is a multiple of 8; otherwise the block is stored as a
+    plain copy (verified against libblosc 1.21 in the tests)."""
+    bsize = len(block)
+    nelem = bsize // typesize
+    if bsize % typesize != 0 or nelem % 8 != 0 or nelem == 0:
+        return block
+    planes = np.unpackbits(
+        np.frombuffer(block, np.uint8).reshape(8 * typesize, nelem // 8),
+        axis=1, bitorder="little")              # (8*typesize, nelem)
+    elem_bits = planes.T.reshape(nelem * typesize, 8)
+    return np.packbits(elem_bits, axis=1,
+                       bitorder="little").reshape(-1).tobytes()
+
+
+def _pure_decompress(frame: bytes, hdr: dict | None = None) -> bytes:
+    """From-the-spec decoder: memcpy / LZ4 / zlib codecs with byte- and
+    bit-shuffle.  zstd/blosclz/snappy payloads need a binary backend."""
+    if hdr is None:
+        hdr = parse_header(frame)
+    nbytes, blocksize = hdr["nbytes"], hdr["blocksize"]
+    typesize = max(hdr["typesize"], 1)
+    if nbytes == 0:
+        return b""
+    if hdr["memcpyed"]:
+        return frame[_MIN_HEADER:_MIN_HEADER + nbytes]
+
+    codec = hdr["codec"]
+    if codec == "lz4":
+        block_decode = _lz4_block_decompress
+    elif codec == "zlib":
+        def block_decode(b, size):
+            return zlib.decompress(b)
+    else:
+        raise NotImplementedError(
+            f"pure-python blosc decode supports memcpy/lz4/zlib frames; "
+            f"this frame uses {codec!r} (install/ship libblosc)")
+
+    nblocks = -(-nbytes // blocksize)
+    bstarts = struct.unpack_from(f"<{nblocks}i", frame, _MIN_HEADER)
+    out = bytearray()
+    for j in range(nblocks):
+        bsize = min(blocksize, nbytes - j * blocksize)
+        leftover = bsize < blocksize
+        nstreams = 1 if (hdr["dont_split"] or leftover
+                         or typesize > 16) else typesize
+        pos = bstarts[j]
+        neblock = bsize // nstreams
+        parts = []
+        for _ in range(nstreams):
+            (csize,) = struct.unpack_from("<i", frame, pos)
+            pos += 4
+            payload = frame[pos:pos + abs(csize)]
+            pos += abs(csize)
+            if csize == neblock:        # stored uncompressed
+                parts.append(payload)
+            else:
+                parts.append(block_decode(payload, neblock))
+        block = b"".join(parts)
+        if len(block) != bsize:
+            raise ValueError(f"block {j}: got {len(block)} bytes, "
+                             f"wanted {bsize}")
+        if hdr["byteshuffle"]:
+            block = _byte_unshuffle(block, typesize)
+        elif hdr["bitshuffle"]:
+            block = _bit_unshuffle(block, typesize)
+        out += block
+    return bytes(out)

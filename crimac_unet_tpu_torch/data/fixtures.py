@@ -1,8 +1,12 @@
 """Synthetic echogram fixtures for tests and on-card smoke runs.
 
 The reference has no test data generators (SURVEY.md §4); these build
-structurally faithful memmap echogram dirs matching the pickled-metadata +
-.dat contract (reference data/data_reader.py:84-113) from a seed.
+tiny but structurally faithful surveys from a seed in both on-disk
+formats, as the JAX package's ``crimac_unet_tpu/data/fixtures.py`` does:
+
+  * memmap echogram dirs matching the pickled-metadata + .dat contract
+    (reference data/data_reader.py:84-113)
+  * zarr survey triplets via :func:`echograms_to_zarr_survey`
 
 Synthetic content: lognormal background noise, a strong seabed return along
 a wavy seabed line, and elliptical fish schools (sandeel=27, other=1, plus an
@@ -194,3 +198,34 @@ def make_survey_dir(path, year=2017, n_echograms=2, H=120, W=300, seed=0,
         dirs.append(write_memmap_echogram(path, name, data, labels, heave,
                                           frequencies))
     return dirs
+
+
+def make_zarr_survey(path, year=2017, n_echograms=2, H=120, W=300, seed=0,
+                     frequencies=DEFAULT_FREQUENCIES, n_schools=3,
+                     unused_species=False, layout="flat"):
+    """Create a synthetic zarr survey triplet.
+
+    ``layout='nested'`` reproduces the production directory layout
+    ``<root>/<year>/S<survey>/ACOUSTIC/GRIDDED/<survey>_sv.zarr``
+    (reference data_reader.py:1129-1133); ``'flat'`` writes directly to
+    ``path``.  Returns the path to the ``_sv.zarr`` store.
+    """
+    import tempfile
+
+    from .memmap_reader import Echogram
+    from .preprocess import echograms_to_zarr_survey
+
+    survey_name = f"S{year}843"
+    if layout == "nested":
+        out_dir = os.path.join(str(path), str(year), survey_name,
+                               "ACOUSTIC", "GRIDDED")
+    else:
+        out_dir = str(path)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = make_survey_dir(tmp, year, n_echograms, H, W, seed,
+                               frequencies, n_schools, unused_species)
+        echs = [Echogram(d) for d in dirs]
+        cats = [-1, 1, 27] + ([6] if unused_species else [])
+        echograms_to_zarr_survey(echs, out_dir, survey_name, categories=cats)
+    return os.path.join(out_dir, f"{survey_name}_sv.zarr")

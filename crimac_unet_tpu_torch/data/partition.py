@@ -1,16 +1,17 @@
-"""Survey partitioning for evaluation (memmap surveys).
+"""Survey partitioning for prediction and evaluation (memmap and zarr).
 
 The evaluation half of the JAX package's ``crimac_unet_tpu/data/
-partition.py`` (reference crimac_unet/data/partition.py:29-190): the
+partition.py`` (reference crimac_unet/data/partition.py:29-383): the
 ``partition_predict`` policies ``selected surveys`` and ``all surveys``
-(the hard-coded 2007-2018 evaluation list) and per-survey reader lookup.
-The training split and the sampler battery come with the training slice;
-zarr partitions with the zarr slice.
+(the hard-coded 2007-2018 evaluation list) and per-survey reader lookup,
+for both data modes.  The training split and the sampler battery come
+with the training slice.
 """
 
 from __future__ import annotations
 
 from .memmap_reader import get_echograms
+from .zarr_reader import get_zarr_readers
 
 EVAL_ALL_SURVEYS = [2007, 2008, 2009, 2010, 2011, 2013, 2014, 2015, 2016,
                     2017, 2018]
@@ -49,12 +50,27 @@ class DataMemm(_DataPartition):
         return [r for r in self.readers if r.year == survey]
 
 
+class DataZarr(_DataPartition):
+    """Zarr-mode partition (reference partition.py:193-383), evaluation
+    half."""
+
+    def __init__(self, *args, path_to_zarr_files=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._zarr_root = path_to_zarr_files
+
+    def get_survey_readers(self, survey):
+        # predict/eval discovery: unannotated surveys allowed (degraded
+        # prediction-only mode)
+        return get_zarr_readers([survey], frequencies=self.frequencies,
+                                minimum_shape=self.window_size[0],
+                                path_to_zarr_files=self._zarr_root,
+                                require_categories=False)
+
+
 def make_partition(config: dict, **kwargs):
     mode = config["data_mode"]
     if mode == "zarr":
-        raise NotImplementedError(
-            "data_mode 'zarr' is not ported yet (ROADMAP.md queue A: "
-            "zarr I/O)")
+        return DataZarr(**config, **kwargs)
     if mode == "memm":
         return DataMemm(**config, **kwargs)
     raise ValueError("data_mode must be 'zarr' or 'memm'")

@@ -7,8 +7,7 @@ column-group loop over ``GriddedRunner._eval_patches``: a prefetch thread
 builds the next group's host slabs and starts their host-to-device copy
 on a side stream from pinned memory while the main thread enqueues the
 current group, and each group's int32 histogram is drained into an int64
-host total one group behind.  Memmap surveys only: zarr evaluation waits
-for the zarr slice (ROADMAP.md queue A).
+host total one group behind.  Memmap and zarr surveys.
 """
 
 from __future__ import annotations
@@ -32,9 +31,10 @@ from .runner import GriddedRunner
 def evaluate_reader(runner: GriddedRunner, reader, hist, eval_mode="all",
                     extend_size=20, chunk_cols=8, progress=False,
                     fixed_R=None):
-    """Accumulate the PR histogram over a full memmap reader's
-    sliding-window grid (evaluate.py:39-117 + validate_model_testing
-    pipeline.py:343-376).
+    """Accumulate the PR histogram over a full reader's sliding-window
+    grid (evaluate.py:39-117 + validate_model_testing pipeline.py:343-376);
+    memmap surveys are read as (range, ping), zarr surveys as (ping,
+    range).
 
     The grid runs in groups of ``chunk_cols`` columns, the last one
     narrower (the JAX package pads it to one static group shape, whose
@@ -48,14 +48,14 @@ def evaluate_reader(runner: GriddedRunner, reader, hist, eval_mode="all",
         raise NotImplementedError(
             "static_grid is not ported yet (ROADMAP.md queue A: "
             "infer_mode slab, static_grid and meta channels)")
-    if reader.data_format == "zarr":
-        raise NotImplementedError(
-            "zarr evaluation is not ported yet (ROADMAP.md queue A: "
-            "zarr I/O)")
     wh, ww = runner.window
     o = runner.overlap
     sh, sw = runner.stride
-    n_range, n_pings = reader.shape
+    is_zarr = reader.data_format == "zarr"
+    if is_zarr:
+        n_pings, n_range = reader.shape
+    else:
+        n_range, n_pings = reader.shape
     is_cuda = runner.device.type == "cuda"
 
     seabed_full = np.asarray(reader.get_seabed(0, n_pings)).astype(np.int64)
@@ -103,8 +103,14 @@ def evaluate_reader(runner: GriddedRunner, reader, hist, eval_mode="all",
         if sw_w > 0:
             _fill_hwc_slab(reader, runner.frequencies, data_slab, slab_x0,
                            slab_x1, slab_y1, o, x_off)
-            label_slab[o:o + slab_y1, x_off:x_off + sw_w] = \
-                reader.label_memmap()[:slab_y1, slab_x0:slab_x1]
+            if is_zarr:
+                # NaN labels (the store's range pad) become BOUNDARY on
+                # the host, before any int cast could map them to 0
+                lab = reader.get_label_slice(slab_x0, sw_w, 0, slab_y1)
+                lab = np.nan_to_num(lab.T, nan=LABEL_BOUNDARY_VAL)
+            else:
+                lab = reader.label_memmap()[:slab_y1, slab_x0:slab_x1]
+            label_slab[o:o + slab_y1, x_off:x_off + sw_w] = lab
 
         host = {}
         if keep_global is not None:
@@ -173,7 +179,8 @@ def evaluate_reader(runner: GriddedRunner, reader, hist, eval_mode="all",
             group_hist = runner._eval_patches(
                 metrics.new_histogram(runner.device), dev["data_slab"],
                 dev["label_slab"], dev["sb_pad"], dev.get("keep_slab"),
-                dev.get("thr_slab"), dev["starts"], N, grid_h=Hp)
+                dev.get("thr_slab"), dev["starts"], N, grid_h=Hp,
+                zarr_pad=is_zarr)
             runner.timer.stop("eval_device_chunk")
             # drain one group behind: the copy waits only for the previous
             # group while this one is already enqueued

@@ -15,6 +15,7 @@ import torch
 
 from ..constants import (BACKGROUND, LABEL_IGNORE_VAL, LABEL_UNUSED_SPECIES,
                          OTHER, RAW_OTHER, RAW_SANDEEL, SANDEEL)
+from ..data.blosc_codec import CVT_F32_BF16
 from ..ops.data_ops import DB_U8_SCALE
 from ..ops.patches import grid_dims
 
@@ -91,10 +92,20 @@ def _convert_labels_host(labels):
 def _fill_hwc_slab(reader, frequencies, data_slab, slab_x0, slab_x1,
                    slab_y1, row_off, x_off):
     """Read survey columns [slab_x0, slab_x1) x rows [0, slab_y1) for all
-    ``frequencies`` of a memmap echogram and write them into ``data_slab``
-    (an (Hs, Wp, C) HWC-layout host array) at (row_off, x_off)."""
+    ``frequencies`` and write them into ``data_slab`` (an (Hs, Wp, C)
+    HWC-layout host array) at (row_off, x_off).  A ``np.uint16`` slab
+    receives bfloat16 bit patterns (zarr surveys only: the codec's
+    converting decode)."""
     w = slab_x1 - slab_x0
     if w <= 0:
+        return
+    if reader.data_format == "zarr":
+        # one decode + scatter straight into the HWC slab (no
+        # intermediate (C, ping, range) buffer, no transpose pass)
+        reader.read_data_into(
+            slab_x0, w, 0, slab_y1, frequencies, data_slab,
+            np.s_[row_off:row_off + slab_y1, x_off:x_off + w, :],
+            cvt=CVT_F32_BF16 if data_slab.dtype == np.uint16 else 0)
         return
     # per-channel strided assignment: one pass, no stacked temporary
     for c, m in enumerate(reader.data_memmaps(frequencies)):

@@ -1,13 +1,14 @@
-"""Chunked sliding-window survey prediction and the memmap writer.
+"""Chunked sliding-window survey prediction and the zarr/memmap writers.
 
 Reproduces the reference's save_predict chunked pipeline
-(save_predict.py:137-265), as the JAX package's
+(save_predict.py:87-265), as the JAX package's
 ``crimac_unet_tpu/pipeline/predict.py`` does, as a software-pipelined
 host/device loop: prefetch threads build one raw slab per ping chunk and
 start its host-to-device copy on a side stream from pinned memory, the
-main thread enqueues the chunk's device work (runner.py), and each
-chunk's output comes back through a pinned buffer with an event that
-``_drain`` waits on, ``pipeline_depth`` chunks behind.
+main thread enqueues the chunk's device work (runner.py), each chunk's
+output comes back through a pinned buffer with an event that ``_drain``
+waits on, ``pipeline_depth`` chunks behind, and the zarr writer appends
+it to the prediction store from one ordered writer thread.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from ..constants import SEABED_PAD
+from ..data import blosc_codec
 from ..ops.label_ops import BIG_ROW
 from ..ops.patches import grid_dims, make_grid_starts
 from ..utils.preload_split import get_data_split
@@ -28,15 +30,22 @@ from .infer_common import (_U8_PROB_DEQUANT, _fill_hwc_slab,
 from .runner import GriddedRunner
 
 
-def _keep_row_bound(fin, zero, sb_vec, row_cut, nr):
+def _keep_row_bound(fin, zero, sb_vec, row_cut, nr, zarr_band=None):
     """Host-side upper bound on the device write mask's last kept row
     (1 + highest row where any pixel CAN be kept), a superset of the
-    memmap law in GriddedRunner._mask_output: it mirrors the
-    label-finiteness / label-zero / seabed algebra and ignores only the
-    sv-finiteness term (which can only shrink the kept set).  The d2h copy
-    is cropped to this bound; rows below it are identically zero."""
+    law in GriddedRunner._mask_output: it mirrors the label-finiteness /
+    label-zero / seabed algebra (the zarr band law when ``zarr_band`` =
+    ``(sh, overlap)``) and ignores only the sv-finiteness term (which can
+    only shrink the kept set).  The d2h copy is cropped to this bound;
+    rows below it are identically zero."""
     rows = np.arange(nr, dtype=np.int64)
-    thresh = np.broadcast_to(sb_vec[None, :] + SEABED_PAD, (nr, len(sb_vec)))
+    if zarr_band is not None:
+        sh, o = zarr_band
+        band_top = np.clip((rows // sh) * sh - o, 0, None)
+        thresh = np.maximum(sb_vec[None, :], band_top[:, None]) + SEABED_PAD
+    else:
+        thresh = np.broadcast_to(sb_vec[None, :] + SEABED_PAD,
+                                 (nr, len(sb_vec)))
     below = rows[:, None] >= thresh
     keep_sup = fin & ~(below & zero)
     keep_sup = keep_sup & (rows < row_cut)[:, None]
@@ -58,31 +67,44 @@ class ChunkGeometry:
     slab_x1: int
     slab_y1: int      # survey rows [0, slab_y1) fill the slab
     x_off: int        # slab column of survey column slab_x0
-    border: tuple     # data rectangle (y0, y1, x0, x1)
+    border: tuple | None  # data rectangle (y0, y1, x0, x1); None: zarr
 
 
-def chunk_geometry(window, overlap, n_range, n_pings, seabed, known, s, e):
-    """Grid and slab extents of memmap chunk [s, e): the grid height from
-    the chunk's seabed (reference gridded.py:121-163), unclipped survey
-    reads limited to the columns live patches read, and only the
-    data-bearing rows [0, o + slab_y1) shipped — the gather kernel reads
-    the rows below as the zero pad."""
+def chunk_geometry(window, overlap, n_range, n_pings, seabed, known, s, e,
+                   is_zarr=False):
+    """Grid and slab extents of chunk [s, e): the grid height from the
+    chunk's seabed (reference gridded.py:121-163), survey reads limited
+    to the columns live patches read, and only the data-bearing rows
+    [0, o + slab_y1) shipped — the gather kernel reads the rows below as
+    the zero pad.  Zarr chunks take the reference preload's column extent
+    (dataset.py:175-184), which after the clip reads one column less on
+    the right than a memmap chunk, and zero no border."""
     wh, ww = window
     o = overlap
     sh, sw = wh - 2 * o, ww - 2 * o
     R = _grid_extent_rows(n_range, seabed[s:e], known[s:e], wh, o)
     C = grid_dims(s, e, ww, o)
-    slab_x0 = max(0, s - o)
-    slab_x1 = min(n_pings, s + C * sw + o)
+    if is_zarr:
+        first_center = s - o - 1 + ww // 2
+        last_center = s + (C - 1) * sw - o - 1 + ww // 2
+        slab_x0 = max(0, first_center - ww // 2)
+        slab_x1 = min(n_pings, last_center + ww // 2)
+    else:
+        slab_x0 = max(0, s - o)
+        slab_x1 = min(n_pings, s + C * sw + o)
+    # patches only ever read data columns [s - o, s + C*sw + o)
+    slab_x0 = max(slab_x0, s - o)
+    slab_x1 = min(slab_x1, s + C * sw + o)
     slab_y1 = min(n_range, R * sh + o)
     x_off = o + (slab_x0 - s)
     return ChunkGeometry(
         R=R, C=C, Hs=min(o + slab_y1, R * sh + 2 * o), Wp=C * sw + 2 * o,
         row_cut=min(R * sh, n_range), slab_x0=slab_x0, slab_x1=slab_x1,
         slab_y1=slab_y1, x_off=x_off,
-        # memmap test transform zeroes dB data outside the data extent
-        # (transforms.py:57-64)
-        border=(o, o + slab_y1, x_off, x_off + (slab_x1 - slab_x0)))
+        # the memmap test transform zeroes dB data outside the data
+        # extent (transforms.py:57-64); the zarr one does not
+        border=None if is_zarr else
+        (o, o + slab_y1, x_off, x_off + (slab_x1 - slab_x0)))
 
 
 class _Staged:
@@ -119,13 +141,19 @@ def _to_device(runner: GriddedRunner, host: dict, copy_stream) -> _Staged:
 
 
 def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
-                   start_ping=0, progress=False):
-    """Yield (chunk_start, chunk_end, (2, n_range, w) float16 predictions)
-    for one memmap reader, reproducing save_predict's chunked sliding
-    window (save_predict.py:137-219)."""
+                   start_ping=0, progress=False, save_labels=False):
+    """Yield (chunk_start, chunk_end, (2, n_range, w) float16 predictions,
+    labels-or-None) for one reader, reproducing save_predict's chunked
+    sliding window (save_predict.py:137-219).  ``save_labels`` also
+    yields the chunk's (n_range, w) float32 raw label map masked by the
+    device write mask (zeros elsewhere)."""
     o = runner.overlap
-    sw = runner.stride[1]
-    n_range, n_pings = reader.shape
+    sh, sw = runner.stride
+    is_zarr = reader.data_format == "zarr"
+    if is_zarr:
+        n_pings, n_range = reader.shape
+    else:
+        n_range, n_pings = reader.shape
     is_cuda = runner.device.type == "cuda"
 
     chunk = preload_n_pings if preload_n_pings > 0 else 5000
@@ -133,6 +161,12 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
 
     seabed_full = np.asarray(reader.get_seabed(0, n_pings)).astype(np.int64)
     seabed_has = np.asarray(reader.seabed_known(0, n_pings))
+
+    # bfloat16 transfer of a zarr survey: the native codec decodes float32
+    # chunks straight into bfloat16 bits (round to nearest even, NaN and
+    # +-Inf kept), skipping the float32 slab and its cast
+    bf16_bits = (runner.transfer_dtype == "bfloat16" and is_zarr
+                 and blosc_codec.scatter_available())
 
     it = splits
     if progress:
@@ -147,7 +181,7 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
     pipeline_depth = int(runner.pipeline_depth)
 
     def _drain(entry):
-        s0, e0, out, event = entry
+        s0, e0, out, keep, event, lab = entry
         runner.timer.start("device_wait")
         if event is not None:
             event.synchronize()
@@ -163,7 +197,16 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
                 part = _U8_PROB_DEQUANT[part]
             host[:, :kr, :] = part
         runner.timer.stop("d2h")
-        return s0, e0, host
+        if lab is not None:
+            # the exported labels take the device write mask itself (rows
+            # at/below kr have keep False); float32 carries 4-digit LSSS
+            # category codes that float16 would round
+            lab_full = np.zeros((n_range, e0 - s0), np.float32)
+            lab_full[:kr] = np.where(
+                keep.numpy()[:kr, :e0 - s0],
+                np.nan_to_num(lab[:kr, :e0 - s0], nan=0.0), 0.0)
+            lab = lab_full
+        return s0, e0, host, lab
 
     def prepare(s, e):
         """Host-side slab construction for one chunk (prefetch thread,
@@ -172,10 +215,10 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
         w = e - s
         runner.timer.start("host_slab")
         g = chunk_geometry(runner.window, o, n_range, n_pings, seabed_full,
-                           seabed_has, s, e)
+                           seabed_has, s, e, is_zarr)
         R, C, Hs, row_cut = g.R, g.C, g.Hs, g.row_cut
         data_slab = np.zeros((Hs, g.Wp, len(runner.frequencies)),
-                             np.float32)
+                             np.uint16 if bf16_bits else np.float32)
         runner.timer.start("host_fill")
         _fill_hwc_slab(reader, runner.frequencies, data_slab, g.slab_x0,
                        g.slab_x1, g.slab_y1, o, g.x_off)
@@ -184,12 +227,23 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
         # write-mask inputs: only rows [0, nr) (the grid-covered range)
         nr = row_cut
         runner.timer.start("host_label")
-        lab = np.asarray(
-            reader.label_memmap()[:row_cut, s:e]).astype(np.float32).T
-        fin_pad = np.zeros((nr, C * sw), bool)
-        zero_pad = np.zeros((nr, C * sw), bool)
-        fin_pad[:row_cut, :w] = np.isfinite(lab).T
-        zero_pad[:row_cut, :w] = (lab == 0).T
+        if is_zarr:
+            lab = reader.get_label_slice(s, w, 0, row_cut)  # (w, row_cut)
+        else:
+            lab = np.asarray(
+                reader.label_memmap()[:row_cut, s:e]).astype(np.float32).T
+        label_pad = None
+        if save_labels:
+            # the export needs the raw label map itself
+            label_pad = np.full((nr, C * sw), np.nan, np.float32)
+            label_pad[:row_cut, :w] = lab.T
+            fin_pad = np.isfinite(label_pad)
+            zero_pad = label_pad == 0
+        else:
+            fin_pad = np.zeros((nr, C * sw), bool)
+            zero_pad = np.zeros((nr, C * sw), bool)
+            fin_pad[:row_cut, :w] = np.isfinite(lab).T
+            zero_pad[:row_cut, :w] = (lab == 0).T
         runner.timer.stop("host_label")
         sb_vec = np.full(C * sw, BIG_ROW, np.int64)
         sb_vec[:w] = np.where(seabed_has[s:e], seabed_full[s:e], BIG_ROW)
@@ -210,6 +264,8 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
             svf[:avail, :w] = np.isfinite(data_slab[o:o + avail, o:o + w, 0])
             bit_planes.append(np.packbits(svf, axis=1))
             slab_xfer = torch.from_numpy(_quantize_db_u8(data_slab))
+        elif bf16_bits:
+            slab_xfer = torch.from_numpy(data_slab).view(torch.bfloat16)
         elif runner.transfer_dtype == "bfloat16":
             # round to nearest even, as ml_dtypes' float32 -> bfloat16
             slab_xfer = torch.from_numpy(data_slab).to(torch.bfloat16)
@@ -221,9 +277,10 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
         runner.timer.stop("h2d_dispatch")
         # d2h crop bound, bucketed to 128-row multiples as in the JAX
         # package (keeps the d2h shapes few)
-        kr = _keep_row_bound(fin_pad, zero_pad, sb_vec, row_cut, nr)
+        kr = _keep_row_bound(fin_pad, zero_pad, sb_vec, row_cut, nr,
+                             (sh, o) if is_zarr else None)
         kr = min(_round_up(kr, 128), nr)
-        return s, e, w, R, C, nr, kr, g.border, y0s, x0s, staged
+        return s, e, w, R, C, nr, kr, g.border, y0s, x0s, staged, label_pad
 
     executor = ThreadPoolExecutor(max_workers=2)
     try:
@@ -232,8 +289,8 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
         n_submitted = len(futs)
 
         for _ in it:
-            (s, e, w, R, C, nr, kr, border_ext, y0s, x0s, staged) = \
-                futs.popleft().result()
+            (s, e, w, R, C, nr, kr, border_ext, y0s, x0s, staged,
+             lab_host) = futs.popleft().result()
             if n_submitted < len(splits):
                 futs.append(executor.submit(prepare, *splits[n_submitted]))
                 n_submitted += 1
@@ -244,21 +301,24 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
             y0p, x0p = runner.grid_starts(y0s, x0s)
             stitched = runner._predict_patches(
                 dev["data_slab"], y0p, x0p, len(y0s), border_ext, R, C)
-            out = runner._mask_output(
+            out, keep = runner._mask_output(
                 stitched, dev["lab_bits"], dev["data_slab"], dev["sb_row"],
-                nr, C * sw, w)
+                nr, C * sw, w, zarr_pad=is_zarr)
             # lossless d2h crop: rows at/below kr are identically zero
             out = out[:, :kr, :]
+            # the keep mask crosses only when labels are exported
+            keep = keep[:kr] if lab_host is not None else None
+            event = None
             if is_cuda:
                 # async d2h into pinned memory; _drain waits on the event
-                host_out = torch.empty(out.shape, dtype=out.dtype,
-                                       pin_memory=True)
-                host_out.copy_(out, non_blocking=True)
+                out, keep = (None if t is None else
+                             torch.empty(t.shape, dtype=t.dtype,
+                                         pin_memory=True).copy_(
+                                 t, non_blocking=True)
+                             for t in (out, keep))
                 event = torch.cuda.Event()
                 event.record()
-                pending.append((s, e, host_out, event))
-            else:
-                pending.append((s, e, out, None))
+            pending.append((s, e, out, keep, event, lab_host))
             runner.timer.stop("device_chunk")
             if len(pending) >= pipeline_depth:
                 yield _drain(pending.pop(0))
@@ -269,6 +329,146 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
         # deterministic teardown: abandoning the generator must not leave
         # prefetch threads staging chunks in the background
         executor.shutdown(wait=True, cancel_futures=True)
+
+
+def _ping_chunk(preload_n_pings: int) -> int:
+    """On-disk ping_time chunk width of prediction stores: follows
+    preload_n_pings, capped at the reference's 1000-ping contract; a
+    non-positive value means the default chunking (predict_reader treats
+    <= 0 as 5000-ping chunks)."""
+    return min(1000, preload_n_pings) if preload_n_pings > 0 else 1000
+
+
+def _resume_point(group, target_dname, save_labels) -> int:
+    """The ping a resumed store continues from: the joint commit point of
+    its arrays (a crash between the annotation and the ping_time append
+    leaves them at different lengths; the longer ones are truncated).
+    ``save_labels`` must match the existing store."""
+    if save_labels and "labels" not in group:
+        raise ValueError(
+            f"Cannot resume {target_dname} with save_labels=True: the "
+            "existing store has no 'labels' array (it was written "
+            "without save_labels)")
+    if not save_labels and "labels" in group:
+        raise ValueError(
+            f"Cannot resume {target_dname} with save_labels=False: the "
+            "existing store has a 'labels' array that would fall "
+            "behind ping_time; pass save_labels=True")
+    if save_labels and group["labels"].dtype == np.float16:
+        # appends cast to the stored dtype: resuming a float16 store
+        # would silently round 4-digit category codes
+        raise ValueError(
+            f"Cannot resume {target_dname}: its 'labels' array is "
+            "float16 (written by an older version; codes above 2048 "
+            "round silently) — re-run without resume_writing to "
+            "rewrite the store at float32")
+    # zarrlite's append is data-before-shape crash-consistent, so the
+    # shapes are trustworthy high-water marks
+    axes = {"annotation": 1, "ping_time": 0}
+    if save_labels:
+        axes["labels"] = 0
+    start_ping = min(group[k].shape[a] for k, a in axes.items())
+    for k, a in axes.items():
+        if group[k].shape[a] != start_ping:
+            shp = list(group[k].shape)
+            shp[a] = start_ping
+            group[k].resize(shp)
+    return start_ping
+
+
+def save_survey_predictions_zarr(runner, reader, target_dname,
+                                 preload_n_pings=1000, resume_writing=False,
+                                 model_name="model", progress=False,
+                                 save_labels=False):
+    """Write chunked predictions to a ``<name>_pred.zarr`` store with the
+    reference's on-disk contract (save_predict.py:87-134): annotation array
+    (category [27, 1], ping_time, range) float16, full-range chunks,
+    append along ping_time, resume from the existing ping count.
+    ``save_labels`` adds a masked (ping_time, range) float32 ``labels``
+    array."""
+    import os
+    import shutil
+
+    from ..data.zarrlite import ZGroup
+
+    n_pings, n_range = reader.shape if reader.data_format == "zarr" else \
+        (reader.shape[1], reader.shape[0])
+
+    group = None
+    start_ping = 0
+    if not resume_writing:
+        if os.path.isdir(target_dname):
+            shutil.rmtree(target_dname)
+    elif os.path.isdir(target_dname):
+        group = ZGroup.open(target_dname)
+        start_ping = _resume_point(group, target_dname, save_labels)
+    # else: a resume over a survey whose previous run died before this
+    # reader's store existed starts it fresh
+
+    def write_chunk(s, e, out, lab):
+        nonlocal group
+        runner.timer.start("zarr_write")
+        pred = out.transpose(0, 2, 1)  # -> (category, ping, range)
+        if group is None:
+            group = ZGroup.create(
+                target_dname,
+                attrs={"description": f"{model_name} predictions"})
+            group.create_array(
+                "annotation", (2, 0, n_range),
+                (1, _ping_chunk(preload_n_pings), n_range),
+                np.float16, fill_value=0, dims=["category", "ping_time",
+                                                "range"],
+                # reference output codec: Blosc zstd-3 BITSHUFFLE
+                # (save_predict.py:128); zlib when blosc is unavailable
+                compressor="blosc-zstd")
+            group.create_array("category", (2,), (2,), np.int64,
+                               fill_value=None, compressor=None,
+                               dims=["category"])[:] = np.array([27, 1])
+            group.create_array("range", (n_range,), (n_range,), np.float64,
+                               fill_value=None, compressor=None,
+                               dims=["range"])[:] = \
+                np.asarray(reader.range_vector)
+            tv = np.asarray(reader.time_vector)
+            group.create_array("ping_time", (0,), (8192,), tv.dtype,
+                               fill_value=None, compressor=None,
+                               dims=["ping_time"])
+        if save_labels and "labels" not in group:
+            group.create_array(
+                "labels", (0, n_range),
+                (_ping_chunk(preload_n_pings), n_range),
+                np.float32, fill_value=0, dims=["ping_time", "range"],
+                compressor="blosc-zstd")
+        group["annotation"].append(pred, axis=1)
+        if save_labels:
+            group["labels"].append(lab.T, axis=0)
+        group["ping_time"].append(np.asarray(reader.time_vector[s:e]),
+                                  axis=0)
+        runner.timer.stop("zarr_write")
+
+    # one ordered writer thread: the encode + file appends of chunk k
+    # overlap the device work of chunk k+1; appends stay sequential along
+    # ping_time, and a writer failure surfaces on the next submit or at
+    # the drain, before any out-of-order append
+    writer = ThreadPoolExecutor(max_workers=1)
+    pending_write = None
+    try:
+        for s, e, out, lab in predict_reader(runner, reader,
+                                             preload_n_pings, start_ping,
+                                             progress,
+                                             save_labels=save_labels):
+            if pending_write is not None:
+                pending_write.result()  # re-raises writer errors in order
+            pending_write = writer.submit(write_chunk, s, e, out, lab)
+        if pending_write is not None:
+            pending_write.result()
+    finally:
+        writer.shutdown(wait=True)
+    # a completed run of writes snapshots consolidated metadata, as
+    # xarray-written stores carry; any append during the run dropped a
+    # pre-existing snapshot, so a crash never leaves a stale one
+    if group is not None:
+        group.consolidate()
+    return target_dname
 
 
 def save_reader_predictions_memm(runner, reader, target_dname,
@@ -282,8 +482,8 @@ def save_reader_predictions_memm(runner, reader, target_dname,
         return target_dname
     n_range, n_pings = reader.shape
     out = np.zeros((2, n_range, n_pings), np.float16)
-    for s, e, chunk in predict_reader(runner, reader, preload_n_pings, 0,
-                                      progress):
+    for s, e, chunk, _ in predict_reader(runner, reader, preload_n_pings, 0,
+                                         progress):
         out[:, :, s:e] = chunk
     np.save(target_dname, out)
     return target_dname

@@ -141,9 +141,9 @@ class GriddedRunner:
         return stitch_patches(sel[:N], R, C, self.overlap)
 
     def _mask_output(self, stitched, lab_bits, data_slab, sb_row,
-                     n_range, n_pings, chunk_w):
+                     n_range, n_pings, chunk_w, zarr_pad=False):
         """Crop stitched grid output to the chunk extent, apply the write
-        masks, emit the d2h dtype (memmap surveys).
+        masks, emit the d2h dtype.
 
         ``lab_bits`` stacks the host-packed label predicates (plane 0 =
         isfinite(label), plane 1 = label == 0, optional plane 2 = channel-0
@@ -151,8 +151,21 @@ class GriddedRunner:
         seabed row vector with the reference grid's ``row_cut`` appended.
         Without plane 2 the sv finiteness is read from channel 0 of the
         slab already on the device (survey ping ``s + j`` at slab column
-        ``overlap + j``).  Returns ``(2, n_range, n_pings)`` float16
-        probabilities, or uint8 codes under ``output_dtype: uint8``."""
+        ``overlap + j``).
+
+        The seabed exclusion depends on the survey format: the reference
+        zarr reader shifts the *sliced* bottom mask down by SEABED_PAD
+        (data_reader.py:841-846), so a row in the patch band whose top
+        data row is ``band_top`` masks from ``max(seabed, band_top) +
+        pad`` (``zarr_pad``); the memmap reader clamps to
+        ``max(seabed + pad, patch_top)`` (data_reader.py:407-431), which
+        within a patch interior is ``seabed + pad``.
+
+        Returns ``(out, keep)``: ``(2, n_range, n_pings)`` float16
+        probabilities (uint8 codes under ``output_dtype: uint8``) and the
+        bool write mask, which save_labels applies to the exported labels
+        (``out != 0`` would drop kept pixels whose probability underflows
+        to 0)."""
         Hs, Ws, _ = stitched.shape
         dev = stitched.device
         seabed, row_cut = sb_row[:-1], sb_row[-1]
@@ -161,8 +174,14 @@ class GriddedRunner:
         h, w = min(Hs, n_range), min(Ws, n_pings)
         img[:h, :w] = stitched[:h, :w]
         rows = torch.arange(n_range, device=dev)[:, None]
-        below = rows >= seabed[None, :] + SEABED_PAD
         o = self.overlap
+        if zarr_pad:
+            sh = self.stride[0]
+            band_top = torch.clamp((rows // sh) * sh - o, min=0)
+            below = rows >= torch.maximum(seabed[None, :], band_top) \
+                + SEABED_PAD
+        else:
+            below = rows >= seabed[None, :] + SEABED_PAD
         if lab_bits.shape[0] >= 3:
             sv_fin = _unpack_bits(lab_bits[2], n_pings)
         else:
@@ -179,8 +198,8 @@ class GriddedRunner:
         out = torch.where(keep[:, :, None], img, 0.0).permute(
             2, 0, 1).contiguous()
         if self.output_dtype == "uint8":
-            return _quantize_prob_u8(out)
-        return out.to(torch.float16)
+            return _quantize_prob_u8(out), keep
+        return out.to(torch.float16), keep
 
     def _eval_patches(self, hist, data_slab, label_slab, sb_pad, keep_slab,
                       thr_slab, starts, N, grid_h, zarr_pad=False,
@@ -199,11 +218,9 @@ class GriddedRunner:
         quantized transfer (the int8 label slab is the signal) or None;
         ``starts`` (4, Np) int32: patch starts y0, x0, each patch's first
         data row and its live flag (0 for the sub-batch pad), padded to
-        the sub-batch total."""
-        if zarr_pad:
-            raise NotImplementedError(
-                "zarr evaluation is not ported yet (ROADMAP.md queue A: "
-                "zarr I/O)")
+        the sub-batch total.  ``zarr_pad``: a zarr survey, with the zarr
+        reader's seabed law and no border zeroing (the reference's zarr
+        eval transform has none, evaluate.py:47)."""
         if use_meta:
             raise NotImplementedError(
                 "meta channels are not ported yet (ROADMAP.md queue A: "
@@ -248,8 +265,14 @@ class GriddedRunner:
 
             sb_abs = sb_pad[x0b[:, None] + ar_w]          # (B, ww)
             sy0 = torch.clamp(py0b, min=0)[:, None]
-            # memmap: max(seabed + pad, patch_top) (data_reader.py:407-431)
-            thresh = torch.maximum(sb_abs + SEABED_PAD, sy0)
+            if zarr_pad:
+                # zarr: max(seabed, patch_top) + pad
+                # (data_reader.py:841-846)
+                thresh = torch.maximum(sb_abs, sy0) + SEABED_PAD
+            else:
+                # memmap: max(seabed + pad, patch_top)
+                # (data_reader.py:407-431)
+                thresh = torch.maximum(sb_abs + SEABED_PAD, sy0)
             sb_rows = torch.clamp(thresh - py0b[:, None], -(10 ** 6),
                                   BIG_ROW).to(torch.int32)
 
@@ -272,11 +295,13 @@ class GriddedRunner:
             # which would otherwise make them -1 negatives)
             lab = torch.where(cvb[:, None, None] > 0, lab, LABEL_IGNORE_VAL)
 
-            # memmap eval zeroes dB data at the boundary (the reference's
-            # define_data_transform_test; its zarr eval does not)
-            d = data_ops.set_data_border_value(
-                data_ops.net_db_input(data, scaled=False), lab,
-                channels_last=True)
+            d = data_ops.net_db_input(data, scaled=False)
+            if not zarr_pad:
+                # memmap eval zeroes dB data at the boundary (the
+                # reference's define_data_transform_test; its zarr eval
+                # does not)
+                d = data_ops.set_data_border_value(d, lab,
+                                                   channels_last=True)
             probs = torch.softmax(self.model(d), dim=-1)
             metrics.update_pr_histogram(hist, probs[..., 1], lab)
             self.forwards += 1

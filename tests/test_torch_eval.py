@@ -219,16 +219,9 @@ def test_eval_rejects_unported_paths(surveys, variables):
     reader = Echogram(next(surveys["port"].iterdir()))
     with pytest.raises(NotImplementedError, match="static_grid"):
         evaluate_reader(runner, reader, metrics.new_histogram(), fixed_R=4)
-    for kw in ({"zarr_pad": True}, {"use_meta": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            runner._eval_patches(None, None, None, None, None, None, None, 0,
-                                 0, **kw)
-    from crimac_unet_tpu_torch.data.partition import make_partition
-    with pytest.raises(NotImplementedError, match="zarr"):
-        make_partition(dict(CFG, data_mode="zarr"))
-    reader.data_format = "zarr"
-    with pytest.raises(NotImplementedError, match="zarr"):
-        evaluate_reader(runner, reader, metrics.new_histogram())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        runner._eval_patches(None, None, None, None, None, None, None, 0, 0,
+                             use_meta=True)
 
 
 def test_save_pr_plot_names_matplotlib_when_missing(monkeypatch, tmp_path):

@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: it imports no JAX stack and nothing of
-the JAX package, runs on CUDA unless asked for the CPU, and builds its
-kernels only when one is launched."""
+"""The PyTorch port stands alone: it imports no JAX stack, no pandas and
+nothing of the JAX package, runs on CUDA unless asked for the CPU, and
+builds its kernels only when one is launched."""
 
 import ast
 import os
@@ -13,8 +13,9 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "crimac_unet_tpu_torch"
+# pandas: the card's machine has none
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ml_dtypes",
-             "crimac_unet_tpu"}
+             "crimac_unet_tpu", "pandas"}
 
 
 def _imported_roots(path: Path):
@@ -52,8 +53,9 @@ def test_runner_on_cpu_leaves_jax_out_of_sys_modules():
     code = """
 import sys
 from crimac_unet_tpu_torch.models.unet import build_unet
-from crimac_unet_tpu_torch.pipeline import evaluate, save_predict
+from crimac_unet_tpu_torch.pipeline import dockerscript, evaluate, save_predict
 from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
+from crimac_unet_tpu_torch.data import zarr_reader, preprocess, fixtures
 cfg = {"patch_size": [64, 64], "patch_overlap": 8, "depth": 2,
        "start_filts": 4, "frequencies": [18, 38, 120, 200],
        "compute_dtype": "float32"}
@@ -112,6 +114,25 @@ print("OK", cuda_lib.launches)
     proc = _run(code, {"PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "OK {'gather_db': 0" in proc.stdout
+
+
+def test_docker_entry_without_device_raises_without_cuda(tmp_path,
+                                                        monkeypatch):
+    """The docker entry with no config file runs on CUDA: without a card
+    it raises and writes nothing."""
+    from crimac_unet_tpu_torch.data.fixtures import make_zarr_survey
+    from crimac_unet_tpu_torch.models.unet import UNet
+    from crimac_unet_tpu_torch.pipeline import dockerscript
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    torch.save(UNet(depth=2, start_filts=4).state_dict(), tmp_path / "m.pt")
+    sv = make_zarr_survey(tmp_path, n_echograms=1, H=40, W=60, seed=1)
+    monkeypatch.setenv("MODELWEIGHTS", str(tmp_path / "m.pt"))
+    monkeypatch.setenv("SURVEY_PATH", sv)
+    monkeypatch.setenv("OUTPUT_DIR", str(tmp_path))
+    monkeypatch.delenv("CONFIG_PATH", raising=False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dockerscript.main()
+    assert not (tmp_path / "predictions.zarr").exists()
 
 
 def test_eval_cli_without_device_raises_without_cuda(tmp_path, monkeypatch):

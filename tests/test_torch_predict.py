@@ -162,10 +162,6 @@ def test_runner_rejects_unported_modes():
     with pytest.raises(ValueError, match="transfer_dtype"):
         GriddedRunner(build_unet(CFG), sd,
                       dict(CFG, transfer_dtype="float16"), device="cpu")
-    from crimac_unet_tpu_torch.pipeline.save_predict import \
-        run_save_predictions
-    with pytest.raises(NotImplementedError, match="zarr"):
-        run_save_predictions(dict(CFG, data_mode="zarr"), None, "unused")
 
 
 def test_sub_batch_shape_matches_jax(variables):
