@@ -20,22 +20,29 @@ raises and the script exits nonzero without its result line:
    (K1's float instructions, counted in its SASS, over 33.5 T/s; K4's
    integer operations over 16.7 T/s; the pools' flops over 67 T/s).
    Each time is the device's, the calls queued behind a device-side
-   sleep so the host's enqueue pace is not what is timed;
+   sleep so the host's enqueue pace is not what is timed.  Then K1 and
+   K3 at slab mode's geometry: K1 as one (H16, W16) window over the
+   first chunk's whole grid (N = 1; uint8, bfloat16 and float32 slabs,
+   scaled and not, shipped short of the grid in rows and columns), K3
+   at (1, H16, W16, 64);
 3. small agreement runs on the CPU (plain versions) and on the card
    (kernels), depth 3 / start_filts 8, float32, TF32 off: one synthetic
    echogram through the whole predict path (BatchNorm folded and
    unfolded: identical write masks, probabilities within 2 float16 ulp)
    and through gridded evaluation (modes all, region, trace: identical
-   per-class pixel counts, max-F1 and AP within 2e-3); then the same
-   checks on a small zarr survey (prediction with float32 and bfloat16
+   per-class pixel counts, max-F1 and AP within 2e-3); the same checks
+   on a small zarr survey (prediction with float32 and bfloat16
    transfer, the latter through the codec's converting decode where it
-   is built, and evaluation in the three modes);
+   is built, and evaluation in the three modes); then slab mode (memm;
+   zarr with uint8 transfer), the static grid (patch and slab) and the
+   metadata channels (early and late inject, patch and slab prediction,
+   evaluation);
 4. the prediction main path at full width: ``run_save_predictions`` on a
    seeded 1000 x 4000 x 4 memmap echogram with the flagship U-Net (depth
    5, start_filts 64, seeded random weights, bfloat16, patch 256 /
    overlap 20, fwd_batch 32), BatchNorm folded (the serving default) and
-   then unfolded, each with the launch counters reset just before and
-   read just after;
+   then unfolded (into its own directory), each with the launch counters
+   reset just before and read just after;
 5. the evaluation main path at full width: ``evaluate_survey`` over the
    same survey (eval_mode all, bfloat16 transfer, BatchNorm folded): a
    warm-up, a timed run with the launch counters reset just before and
@@ -50,10 +57,27 @@ raises and the script exits nonzero without its result line:
    checked, and the codec backend and the compressors are printed;
 7. the zarr evaluation path at full width: ``evaluate_reader`` (mode
    all) on the same zarr survey, a warm-up and a timed run;
-8. one JSON line naming every kernel with its phase-2 numbers, its
-   launches on the main path that runs it (K1-K3 phase 4, K4 phase 5)
-   and its launches on every path (``launches_by_path``), then the last
-   line ``{"ok": true, "device": {...}}``.
+8. the serving preset (``config_serving.yaml`` as the dict
+   ``SERVING_PRESET``: slab mode, static grid, uint8 transfer and
+   output) on the phase-6 zarr survey through
+   ``save_survey_predictions_zarr``: a warm-up, a timed run with its
+   PhaseTimer, a profiled run; one grid shape for every chunk, the store
+   read back and its written set held against the phase-6 store's;
+9. the static grid over a memm survey of two echograms of different
+   heights (1000 and 1200 range x 2000 pings) through
+   ``run_save_predictions``: one grid shape for both, each output equal
+   to the per-reader grids' (float32, TF32 off);
+10. the metadata channels (the six families of config_meta_train.yaml)
+    on the phase-4 survey: early-inject prediction and evaluation, then
+    late-inject prediction, each a warm-up and a timed run;
+11. school-detection evaluation, live on the memm and zarr surveys, then
+    from the stores phases 4 and 6 wrote: equal metrics;
+
+and then one JSON line naming every kernel with its phase-2 numbers
+(slab geometry included), its launches on the main path that runs it
+(K1-K3 phase 4, K4 phase 5) and its launches on every path
+(``launches_by_path``), then the last line ``{"ok": true, "device":
+{...}}``.
 
 Every path is driven with the launch counters set to 0 just before it
 and read just after.
@@ -240,7 +264,7 @@ def first_chunk_inputs(torch, reader, cfg):
     B, Np, _ = sub_batch_shape(len(y0s), cfg["fwd_batch"])
     pad = np.zeros(Np - len(y0s), np.int32)
     y0s, x0s = (np.concatenate([a, pad])[:B] for a in (y0s, x0s))
-    return torch.from_numpy(slab), y0s, x0s, g.border, B
+    return torch.from_numpy(slab), y0s, x0s, g.border, B, g
 
 
 def phase_kernels(torch, cuda_lib, card, reader, cfg):
@@ -257,7 +281,7 @@ def phase_kernels(torch, cuda_lib, card, reader, cfg):
     dev = torch.device("cuda")
     results = {}
     win = tuple(cfg["patch_size"])
-    raw, y0s, x0s, border, B = first_chunk_inputs(torch, reader, cfg)
+    raw, y0s, x0s, border, B, geom = first_chunk_inputs(torch, reader, cfg)
     Hs, Wp, Cf = raw.shape
     y0 = torch.from_numpy(y0s).to(dev)
     x0 = torch.from_numpy(x0s).to(dev)
@@ -375,7 +399,95 @@ def phase_kernels(torch, cuda_lib, card, reader, cfg):
               f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) [{card}]")
     results["binary_closing"] = phase_closing(torch, card, reader, cfg)
+    phase_kernels_slab(torch, card, cfg, slabs, geom, border, per_elem,
+                       results)
     return results
+
+
+def phase_kernels_slab(torch, card, cfg, slabs, geom, border, per_elem,
+                       results):
+    """K1 and K3 at slab mode's geometry (``infer_mode: slab``): K1 as one
+    window over the first chunk's whole grid padded to the pooling
+    alignment (N = 1, start (0, 0), H16 x W16), its rows from Hs on read
+    as zeros, shipped narrower than W16 too, with the memmap data
+    rectangle and the zarr one (the grid); K3 at (1, H16, W16, 64).
+    Checks as at the patch geometry, then times and bounds."""
+    from crimac_unet_tpu_torch.ops.gather_db import (gather_db,
+                                                     gather_db_reference)
+    from crimac_unet_tpu_torch.ops.pool import (relu_pool_skip,
+                                                relu_pool_skip_reference)
+    dev = torch.device("cuda")
+    o = cfg["patch_overlap"]
+    sh, sw = (p - 2 * o for p in cfg["patch_size"])
+    Hp, Wp = geom.R * sh + 2 * o, geom.C * sw + 2 * o
+    div = 2 ** (cfg["depth"] - 1)
+    H16, W16 = -(-Hp // div) * div, -(-Wp // div) * div
+    origin = torch.zeros(1, dtype=torch.int32, device=dev)
+    win = (H16, W16)
+    worst, n_cases = 0.0, 0
+    for sdtype, slab in slabs.items():
+        for cut in (0, 40):     # shipped 40 columns short of the grid
+            s = slab[:, :Wp - cut].contiguous().to(dev)
+            for bd in (border, (0, Hp, 0, Wp - cut)):
+                for scaled in (False, True):
+                    for odt in (torch.bfloat16, torch.float32):
+                        args = (s, origin, origin, win, bd, scaled, odt)
+                        got = gather_db(*args)
+                        err, ok = max_ulp_err(torch, got,
+                                              gather_db_reference(*args))
+                        torch.cuda.synchronize()
+                        # outside the rectangle (the grid pad included)
+                        check(ok and not got[0, min(bd[1], Hp):].any()
+                              and not got[0, :, min(bd[3], Wp):].any(),
+                              f"gather_db slab window off by more than one "
+                              f"ulp or pad not 0.0: slab {sdtype} cut {cut} "
+                              f"border {bd} scaled {scaled} out {odt}: {err}")
+                        worst = max(worst, err)
+                        n_cases += 1
+    Hs, _, Cf = slabs[torch.bfloat16].shape
+    for name, sdtype, bd in (("bf16 memm", torch.bfloat16, border),
+                             ("uint8 zarr", torch.uint8, (0, Hp, 0, Wp))):
+        s = slabs[sdtype].to(dev)
+        args = (s, origin, origin, win, bd, False, torch.bfloat16)
+        # operations: the float path's per-element instructions for every
+        # element inside the rectangle; uint8 codes are one table read
+        by0, by1, bx0, bx1 = bd
+        computed = (min(by1, H16) - max(by0, 0)) * (min(bx1, W16)
+                                                    - max(bx0, 0)) * Cf
+        ops = computed * per_elem if sdtype != torch.uint8 else 0
+        b, by = bound_ms(s.numel() * s.element_size() + 8
+                         + H16 * W16 * Cf * 2, ops, F32_INSTR_PER_S)
+        r = dict(shape=[1, H16, W16, Cf], slab=list(s.shape),
+                 slab_dtype=str(sdtype).replace("torch.", ""),
+                 max_abs_err=worst,
+                 ms=cuda_ms(torch, lambda: gather_db(*args)),
+                 plain_ms=cuda_ms(torch, lambda: gather_db_reference(*args)),
+                 bound_ms=b, bound_by=by, library_ms=None)
+        results["gather_db"]["slab_window_" + name.split()[0]] = r
+        print(f"gather_db slab window ({name}): {n_cases} cases within 1 "
+              f"ulp (max abs err {worst}); slab {tuple(s.shape)} "
+              f"{sdtype} -> (1, {H16}, {W16}, {Cf}) bf16: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{b:.4f} ms ({by}) [{card}]")
+    g = torch.Generator().manual_seed(SEED + 3)
+    x = torch.randn((1, H16, W16, cfg["start_filts"]), generator=g) * 2.0
+    x.view(-1)[:7] = torch.tensor([float("nan")] * 3 + [float("inf")] * 2
+                                  + [float("-inf"), -0.0])
+    x = x.to(dev, torch.bfloat16)
+    for got, want in zip(relu_pool_skip(x), relu_pool_skip_reference(x)):
+        check(equal_nan(torch, got, want),
+              f"relu_pool_skip != plain at {tuple(x.shape)}")
+    torch.cuda.synchronize()
+    n = x.numel()
+    b3, by3 = bound_ms(n * 2 * 2 + n // 4 * 2, 2 * n)
+    r = dict(shape=list(x.shape), max_abs_err=0.0,
+             ms=cuda_ms(torch, lambda: relu_pool_skip(x)),
+             plain_ms=cuda_ms(torch, lambda: relu_pool_skip_reference(x)),
+             bound_ms=b3, bound_by=by3, library_ms=None)
+    results["relu_pool_skip"]["slab_window"] = r
+    print(f"relu_pool_skip slab geometry: bit-equal to plain; "
+          f"{tuple(x.shape)} bf16: kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms, bound {b3:.4f} ms ({by3}) [{card}]")
 
 
 def first_eval_masks(torch, reader, cfg):
@@ -567,9 +679,36 @@ def phase_agreement(torch, tmp):
             predict_agreement(dict(cfg, transfer_dtype=transfer), sd,
                               zreader, f"zarr, {transfer} transfer")
         eval_agreement(torch, dict(cfg, fold_bn=True), sd, zreader)
+        new_paths_agreement(torch, cfg, sd, reader, zreader)
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def new_paths_agreement(torch, cfg, sd, reader, zreader):
+    """The serving preset's modes and the metadata channels, CPU vs card:
+    slab mode (memm; zarr with uint8 transfer), the static grid (patch and
+    slab), metadata early and late inject (patch and slab prediction,
+    evaluation)."""
+    from crimac_unet_tpu_torch.config import META_CHANNELS_ALL
+    from crimac_unet_tpu_torch.models.unet import build_unet, init_random_
+    predict_agreement(dict(cfg, infer_mode="slab"), sd, reader, "memm slab")
+    predict_agreement(dict(cfg, infer_mode="slab", transfer_dtype="uint8"),
+                      sd, zreader, "zarr slab, uint8 transfer")
+    predict_agreement(dict(cfg, static_grid=True), sd, reader,
+                      "memm static grid, patch")
+    predict_agreement(dict(cfg, static_grid=True, infer_mode="slab"), sd,
+                      zreader, "zarr static grid, slab")
+    for late in (False, True):
+        mcfg = dict(cfg, meta_channels=META_CHANNELS_ALL,
+                    late_meta_inject=late)
+        msd = init_random_(build_unet(mcfg), torch.Generator().manual_seed(
+            SEED + 5)).state_dict()
+        inject = "late" if late else "early"
+        for mode in ("patch", "slab"):
+            predict_agreement(dict(mcfg, infer_mode=mode), msd, reader,
+                              f"meta {inject} inject, {mode}")
+        eval_agreement(torch, mcfg, msd, reader, modes=("all",))
 
 
 def predict_agreement(cfg, sd, reader, label):
@@ -601,7 +740,8 @@ def _curve_scores(hist):
     return metrics.max_f1(curve)[0], float(ap)
 
 
-def eval_agreement(torch, cfg, sd, reader):
+def eval_agreement(torch, cfg, sd, reader, modes=("all", "region",
+                                                    "trace")):
     """Gridded evaluation on the CPU (plain versions) and on the card
     (kernels): identical per-class pixel counts (integer label algebra),
     max-F1 and AP within 2e-3 (float32 sums in another order move a score
@@ -611,7 +751,8 @@ def eval_agreement(torch, cfg, sd, reader):
     from crimac_unet_tpu_torch.ops import metrics
     from crimac_unet_tpu_torch.pipeline.eval_gridded import evaluate_reader
     from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
-    for mode in ("all", "region", "trace"):
+    meta = "meta " if cfg.get("meta_channels") else ""
+    for mode in modes:
         hists = [evaluate_reader(GriddedRunner(build_unet(cfg), sd, cfg,
                                                device=device), reader,
                                  metrics.new_histogram(), eval_mode=mode)
@@ -625,7 +766,8 @@ def eval_agreement(torch, cfg, sd, reader):
         (f_c, ap_c), (f_g, ap_g) = _curve_scores(cpu), _curve_scores(gpu)
         check(abs(f_c - f_g) < 2e-3 and abs(ap_c - ap_g) < 2e-3,
               f"eval {mode}: F1 {f_c} vs {f_g}, AP {ap_c} vs {ap_g}")
-        print(f"eval agreement ({reader.data_format}, {mode}): per-class "
+        print(f"eval agreement ({meta}{reader.data_format}, {mode}): "
+              f"per-class "
               f"counts identical "
               f"{cpu.sum(axis=1).tolist()}, |dF1| {abs(f_c - f_g):.3g}, "
               f"|dAP| {abs(ap_c - ap_g):.3g}")
@@ -706,21 +848,20 @@ def phase_main(torch, cuda_lib, ech_dir, reader, cfg, card):
     sd = model.state_dict()
     out_dir = ech_dir.parent / "preds"
     out_dir.mkdir()
-    target = out_dir / f"{reader.name}_pred.npy"
     n_range, n_pings = reader.shape
     launches = {}
 
-    def run(runner, label):
+    def run(runner, label, out=out_dir):
         cuda_lib.reset_launches()
         f0 = runner.forwards
         t = time.perf_counter()
-        run_save_predictions(cfg, runner, str(out_dir),
+        run_save_predictions(cfg, runner, str(out),
                              path_to_echograms=str(ech_dir))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         counts = dict(cuda_lib.launches)
         fwd = runner.forwards - f0
-        pred = np.load(target)
+        pred = np.load(out / f"{reader.name}_pred.npy")
         check(pred.shape == (2, n_range, n_pings)
               and pred.dtype == np.float16,
               f"{label}: prediction {pred.shape} {pred.dtype}")
@@ -753,15 +894,18 @@ def phase_main(torch, cuda_lib, ech_dir, reader, cfg, card):
 
     by_path = {"memm_predict": counts}
 
-    # unfolded BatchNorm (fold_bn: false): gather_db + maxpool2x2
+    # unfolded BatchNorm (fold_bn: false): gather_db + maxpool2x2; its own
+    # directory, so the folded store stays for phase 11
     runner = GriddedRunner(build_unet(cfg), sd, dict(cfg, fold_bn=False))
-    counts, fwd, _ = run(runner, "main path, BatchNorm unfolded")
+    (out_dir.parent / "preds_unfolded").mkdir()
+    counts, fwd, _ = run(runner, "main path, BatchNorm unfolded",
+                         out_dir.parent / "preds_unfolded")
     check(fwd > 0 and counts["gather_db"] == fwd
           and counts["maxpool2x2"] == fwd and counts["relu_pool_skip"] == 0,
           f"unfolded run: launches {counts} for {fwd} forwards")
     launches["maxpool2x2"] = counts["maxpool2x2"]
     by_path["memm_predict_unfolded"] = counts
-    return launches, n_pings / dt, by_path
+    return launches, n_pings / dt, by_path, out_dir
 
 
 # --------------------------------------------------------------- phase 5
@@ -951,7 +1095,7 @@ def phase_zarr_main(torch, cuda_lib, tmp, sv, reader, cfg, card):
           f"{n_pings / ddt:.1f} pings/s including its model build; write "
           f"mask equal to the main path's, max |dprob| {diff.max()} "
           f"[{card}]")
-    return counts, d_counts, n_pings / dt
+    return counts, d_counts, n_pings / dt, pred, Path(target).parent
 
 
 # --------------------------------------------------------------- phase 7
@@ -996,13 +1140,333 @@ def phase_zarr_eval(torch, cuda_lib, reader, cfg, card):
     print(runner.timer.report())
     return counts, n_pings / dt
 
+# --------------------------------------------------------------- phase 8
+def _spy_grid(runner, name):
+    """Record the (R, C) grid of every chunk the runner's ``name``
+    program (``_predict_patches`` or ``_predict_slab``) runs."""
+    seen = []
+    real = getattr(runner, name)
+    at = (5, 6) if name == "_predict_patches" else (2, 3)
+
+    def spy(*args, **kwargs):
+        seen.append((args[at[0]], args[at[1]]))
+        return real(*args, **kwargs)
+    setattr(runner, name, spy)
+    return seen
+
+
+def phase_serving(torch, cuda_lib, tmp, reader, patch_pred, card):
+    """The JAX package's production preset (config_serving.yaml: zarr,
+    ``infer_mode: slab``, ``static_grid``, uint8 transfer and output) at
+    full width on the phase-6 zarr survey through
+    ``save_survey_predictions_zarr``: a warm-up, a timed run, a profiled
+    run; the store is read back and its written set held against the
+    phase-6 patch-mode store's."""
+    from crimac_unet_tpu_torch.config import (SERVING_PRESET,
+                                              parse_config_options)
+    from crimac_unet_tpu_torch.models.unet import build_unet, init_random_
+    from crimac_unet_tpu_torch.pipeline.predict import \
+        save_survey_predictions_zarr
+    from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
+
+    cfg = parse_config_options(dict(SERVING_PRESET, device="cuda"))
+    sd = init_random_(build_unet(cfg), torch.Generator().manual_seed(
+        SEED)).state_dict()
+    runner = GriddedRunner(build_unet(cfg), sd, cfg)
+    check(runner.infer_mode == "slab" and runner.static_grid
+          and runner.transfer_dtype == runner.output_dtype == "uint8",
+          "the serving preset did not set slab / static grid / uint8")
+    grids = _spy_grid(runner, "_predict_slab")
+    n_pings, n_range = reader.shape
+    target = str(tmp / "serving_out" / f"{reader.name}_pred.zarr")
+
+    def run(label):
+        cuda_lib.reset_launches()
+        f0 = runner.forwards
+        t = time.perf_counter()
+        save_survey_predictions_zarr(runner, reader, target,
+                                     preload_n_pings=cfg["preload_n_pings"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts, fwd = dict(cuda_lib.launches), runner.forwards - f0
+        pred, _ = _check_store(target, n_pings, n_range, label)
+        print(f"{label}: {fwd} slab forwards, launches {counts}, {dt:.3f} s "
+              f"= {n_pings / dt:.1f} pings/s, written px "
+              f"{int((pred[0] != 0).sum())} [{card}]")
+        return counts, fwd, dt, pred
+
+    run("serving preset warm-up (cuDNN plans, allocator)")
+    runner.timer.reset()
+    grids.clear()
+    counts, fwd, dt, pred = run("serving preset (zarr, slab, static grid, "
+                                "uint8 in/out)")
+    check(fwd > 0 and counts["gather_db"] == fwd
+          and counts["relu_pool_skip"] == fwd and counts["maxpool2x2"] == 0
+          and counts["binary_closing"] == 0,
+          f"serving run: launches {counts} for {fwd} forwards")
+    check(len(set(grids)) == 1, f"static grid ran {sorted(set(grids))}")
+    print(f"serving preset: one grid {grids[0]} for {len(grids)} chunks")
+    print(f"PhaseTimer, serving preset [{card}]:")
+    print(runner.timer.report())
+    profile_run(torch, lambda: run("serving profiled run")[2], card)
+    if patch_pred is not None:
+        # the write mask is label and seabed algebra, the same in slab and
+        # patch mode; uint8 codes store p < 1/510 as 0, so the written set
+        # can only shrink
+        check(not ((pred != 0) & (patch_pred == 0)).any(),
+              "serving store writes pixels the patch-mode store does not")
+        print(f"serving store: written set within the phase-6 patch store's "
+              f"({int((pred != 0).sum())} of {int((patch_pred != 0).sum())} "
+              f"px)")
+    return counts, n_pings / dt
+
+
+# --------------------------------------------------------------- phase 9
+def phase_static_grid(torch, cuda_lib, tmp, cfg, card):
+    """``static_grid`` over a memm survey of two echograms of different
+    heights and seabed depths through ``run_save_predictions``: one grid
+    shape serves both, and each output equals the per-reader grids' (write
+    masks identical, probabilities within 2 float16 ulp; float32 compute
+    with TF32 off, since another sub-batch size may take another cuDNN
+    algorithm, whose float32 sums differ in the last bits)."""
+    import numpy as np
+    from crimac_unet_tpu_torch.data.fixtures import (make_synthetic_echogram,
+                                                     write_memmap_echogram)
+    from crimac_unet_tpu_torch.models.unet import build_unet, init_random_
+    from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
+    from crimac_unet_tpu_torch.pipeline.save_predict import \
+        run_save_predictions
+
+    root = tmp / "static_memm"
+    rng = np.random.RandomState(SEED)
+    n_pings = 0
+    for i, (h, frac, row) in enumerate(((1000, 0.4, 380), (1200, 0.85, 990))):
+        data, labels, heave, _ = make_synthetic_echogram(
+            h, 2000, rng, n_schools=12, seabed_frac=frac)
+        d = write_memmap_echogram(root, f"2019843-D2019042{7 + i}-T06261{i}",
+                                  data, labels, heave)
+        np.save(Path(d) / "seabed.npy", np.full(2000, row, np.int64))
+        n_pings += 2000
+    cfg = dict(cfg, compute_dtype="float32", save_prediction_surveys=[2019])
+    sd = init_random_(build_unet(cfg), torch.Generator().manual_seed(
+        SEED)).state_dict()
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    outs, grids = {}, {}
+    try:
+        for static in (False, True):
+            scfg = dict(cfg, static_grid=static)
+            runner = GriddedRunner(build_unet(scfg), sd, scfg)
+            grids[static] = _spy_grid(runner, "_predict_patches")
+            out = tmp / f"static_out_{static}"
+            out.mkdir()
+            cuda_lib.reset_launches()
+            t = time.perf_counter()
+            run_save_predictions(scfg, runner, str(out),
+                                 path_to_echograms=str(root))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            counts, fwd = dict(cuda_lib.launches), runner.forwards
+            check(fwd > 0 and counts["gather_db"] == fwd
+                  and counts["relu_pool_skip"] == fwd,
+                  f"static_grid {static}: launches {counts} for {fwd} "
+                  f"forwards")
+            outs[static] = {p.name: np.load(p) for p in out.iterdir()}
+            print(f"memm survey of 2 echograms (1000 and 1200 range x 2000 "
+                  f"pings), static_grid {static}, float32: grids "
+                  f"{sorted(set(grids[static]))}, {fwd} forwards, launches "
+                  f"{counts}, {dt:.3f} s = {n_pings / dt:.1f} pings/s "
+                  f"[{card}]")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    check(len(set(grids[False])) > 1 and len(set(grids[True])) == 1,
+          f"grids: per-reader {sorted(set(grids[False]))}, static "
+          f"{sorted(set(grids[True]))}")
+    check(sorted(outs[True]) == sorted(outs[False]) and len(outs[True]) == 2,
+          f"outputs {sorted(outs[True])} vs {sorted(outs[False])}")
+    worst = 0.0
+    for name, a in outs[True].items():
+        b = outs[False][name]
+        check(a.shape == b.shape and np.array_equal(a == 0, b == 0)
+              and (a != 0).any(), f"{name}: write masks differ")
+        diff = np.abs(a.astype(np.float32) - b.astype(np.float32))
+        ulp = np.spacing(np.maximum(np.abs(a), np.abs(b))).astype(np.float32)
+        check(np.all(diff <= 2 * ulp), f"{name}: static grid off the "
+                                       f"per-reader grid by {diff.max()}")
+        worst = max(worst, float(diff.max()))
+    print(f"static grid: one grid for both echograms, outputs equal to the "
+          f"per-reader grids' (masks identical, max |dprob| {worst})")
+    return counts
+
+
+# -------------------------------------------------------------- phase 10
+def phase_meta(torch, cuda_lib, ech_dir, reader, cfg, card):
+    """Metadata channels at full width on the phase-4 survey, the six
+    families of config_meta_train.yaml: early-inject prediction
+    (``run_save_predictions``) and evaluation (``evaluate_survey``), then
+    late-inject prediction; each a warm-up and a timed run."""
+    import numpy as np
+    from crimac_unet_tpu_torch.config import META_CHANNELS_ALL
+    from crimac_unet_tpu_torch.data.partition import make_partition
+    from crimac_unet_tpu_torch.models.unet import build_unet, init_random_
+    from crimac_unet_tpu_torch.pipeline.evaluate import evaluate_survey
+    from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
+    from crimac_unet_tpu_torch.pipeline.save_predict import \
+        run_save_predictions
+
+    n_range, n_pings = reader.shape
+    paths, rates = {}, {}
+    for late in (False, True):
+        inject = "late" if late else "early"
+        mcfg = dict(cfg, meta_channels=META_CHANNELS_ALL,
+                    late_meta_inject=late, eval_mode="all",
+                    partition_predict="selected surveys",
+                    evaluation_surveys=[2017])
+        sd = init_random_(build_unet(mcfg), torch.Generator().manual_seed(
+            SEED + 5)).state_dict()
+        runner = GriddedRunner(build_unet(mcfg), sd, mcfg)
+        check(runner.use_meta, "metadata channels not on")
+        out = ech_dir.parent / f"meta_{inject}"
+        out.mkdir()
+
+        def run(label):
+            cuda_lib.reset_launches()
+            f0 = runner.forwards
+            t = time.perf_counter()
+            run_save_predictions(mcfg, runner, str(out),
+                                 path_to_echograms=str(ech_dir))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            counts, fwd = dict(cuda_lib.launches), runner.forwards - f0
+            pred = np.load(out / f"{reader.name}_pred.npy")
+            check(pred.shape == (2, n_range, n_pings)
+                  and np.isfinite(pred).all() and (pred != 0).any()
+                  and pred.max() <= 1, f"{label}: prediction")
+            print(f"{label}: {fwd} forwards, launches {counts}, {dt:.3f} s "
+                  f"= {n_pings / dt:.1f} pings/s [{card}]")
+            return counts, fwd, dt
+
+        run(f"meta {inject} inject warm-up")
+        runner.timer.reset()
+        counts, fwd, dt = run(f"meta {inject} inject prediction (7 bands, "
+                              f"K1 scaled)")
+        check(fwd > 0 and counts["gather_db"] == fwd
+              and counts["relu_pool_skip"] == fwd
+              and counts["maxpool2x2"] == 0,
+              f"meta {inject}: launches {counts} for {fwd} forwards")
+        print(f"PhaseTimer, meta {inject} inject prediction [{card}]:")
+        print(runner.timer.report())
+        paths[f"memm_meta_{inject}"] = counts
+        rates[f"meta {inject} prediction"] = n_pings / dt
+        if late:
+            continue
+        part = make_partition(mcfg, path_to_echograms=str(ech_dir))
+        readers = part.get_survey_readers(2017)
+
+        def run_eval(label):
+            cuda_lib.reset_launches()
+            f0 = runner.forwards
+            t = time.perf_counter()
+            curve = evaluate_survey(runner, readers, "all")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            counts, fwd = dict(cuda_lib.launches), runner.forwards - f0
+            check(len(curve["thresholds"]) > 0
+                  and 0 <= float(curve["F1"].max()) <= 1,
+                  f"{label}: curve")
+            print(f"{label}: {fwd} sub-batches, launches {counts}, "
+                  f"{dt:.3f} s = {n_pings / dt:.1f} pings/s, max F1 "
+                  f"{float(curve['F1'].max()):.6f} [{card}]")
+            return counts, fwd, dt
+
+        run_eval("meta eval warm-up")
+        runner.timer.reset()
+        counts, fwd, dt = run_eval("meta early inject evaluation, mode all")
+        check(fwd > 0 and counts["binary_closing"] == fwd
+              and counts["relu_pool_skip"] == fwd
+              and counts["gather_db"] == 0,
+              f"meta eval: launches {counts} for {fwd} sub-batches")
+        print(f"PhaseTimer, meta evaluation [{card}]:")
+        print(runner.timer.report())
+        paths["memm_meta_eval"] = counts
+        rates["meta evaluation"] = n_pings / dt
+    return paths, rates
+
+
+# -------------------------------------------------------------- phase 11
+def phase_school(torch, cuda_lib, tmp, cfg, cases, card):
+    """School-detection evaluation (``school_eval_survey``) live on the
+    memm and zarr surveys, then from the stores phases 4 and 6 wrote with
+    the same weights and settings: the same detections, so the same AP.
+    ``cases``: (label, config, readers, store directory).  Random weights
+    score no real schools, so the probability threshold is the store's
+    99th percentile of written sandeel probabilities, fixed before the
+    live run, and the inventory is the plain component one (min_area 1,
+    no gap merge): its detections are many and sensitive to every pixel."""
+    import numpy as np
+    from crimac_unet_tpu_torch.models.unet import build_unet, init_random_
+    from crimac_unet_tpu_torch.pipeline import school_eval
+    from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
+
+    paths, rates = {}, {}
+    for label, scfg, readers, store_dir in cases:
+        store = next(store_dir.glob("*_pred.*"))
+        if store.suffix == ".npy":
+            sand = np.load(store)[0]
+        else:
+            from crimac_unet_tpu_torch.data.zarrlite import ZGroup
+            sand = ZGroup.open(str(store))["annotation"][:][0]
+        thr = float(np.quantile(sand[sand != 0].astype(np.float32), 0.99))
+        sd = init_random_(build_unet(scfg), torch.Generator().manual_seed(
+            SEED)).state_dict()
+        runner = GriddedRunner(build_unet(scfg), sd, scfg)
+        kw = dict(preload_n_pings=scfg["preload_n_pings"], prob_threshold=thr,
+                  min_area=1, merge_gap=0)
+        cuda_lib.reset_launches()
+        t = time.perf_counter()
+        live = school_eval.school_eval_survey(
+            runner, readers, save_path_metrics=str(tmp / f"{label}_se.csv"),
+            save_path_detections=str(tmp / f"{label}_schools.csv"), **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        counts, fwd = dict(cuda_lib.launches), runner.forwards
+        check(fwd > 0 and counts["gather_db"] == fwd
+              and counts["relu_pool_skip"] == fwd,
+              f"school eval {label}: launches {counts} for {fwd} forwards")
+        t = time.perf_counter()
+        stored = school_eval.school_eval_survey(
+            None, readers, from_predictions=str(store_dir), **kw)
+        sdt = time.perf_counter() - t
+        check(repr(live) == repr(stored),
+              f"school eval {label}: live {live} != from stores {stored}")
+        check(live["categories"]["sandeel"]["n_detections"] > 0,
+              f"school eval {label}: no detections")
+        n_pings = sum(r.shape[0] if r.data_format == "zarr" else r.shape[1]
+                      for r in readers)
+        cats = ", ".join(f"{k} AP {m['ap']} ({m['n_detections']} det / "
+                         f"{m['n_gt']} gt)"
+                         for k, m in live["categories"].items())
+        print(f"school eval {label} (threshold {thr:.6f}): live {fwd} "
+              f"forwards, launches {counts}, {dt:.3f} s = {n_pings / dt:.1f} "
+              f"pings/s; from the stores {sdt:.3f} s, equal; {cats}, mAP "
+              f"{live['mean_ap']} [{card}]")
+        paths[f"{label}_school_eval"] = counts
+        rates[f"{label} school eval"] = n_pings / dt
+    return paths, rates
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
-                    help="comma-separated subset of phases 1-7")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+                    help="comma-separated subset of phases 1-11 (11 needs "
+                         "4 and 6)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
+    if 11 in phases and not phases >= {4, 6}:
+        ap.error("phase 11 reads the stores of phases 4 and 6")
 
     import torch
     if not torch.cuda.is_available():
@@ -1022,23 +1486,42 @@ def main(argv=None) -> int:
         if 3 in phases:
             phase_agreement(torch, tmp)
         if 4 in phases:
-            launches, rates["memm prediction"], paths = phase_main(
-                torch, cuda_lib, ech_dir, reader, cfg, card)
+            launches, rates["memm prediction"], paths, memm_store = \
+                phase_main(torch, cuda_lib, ech_dir, reader, cfg, card)
             by_path.update(paths)
         if 5 in phases:
             by_path["memm_eval"], rates["memm evaluation"] = phase_eval(
                 torch, cuda_lib, ech_dir, reader, cfg, card)
             launches["binary_closing"] = \
                 by_path["memm_eval"]["binary_closing"]
-        if phases & {6, 7}:
+        if phases & {6, 7, 8, 11}:
             sv, zreader = zarr_setup(torch, tmp)
+        zarr_pred = None
         if 6 in phases:
             (by_path["zarr_predict"], by_path["zarr_docker"],
-             rates["zarr prediction"]) = phase_zarr_main(
-                torch, cuda_lib, tmp, sv, zreader, cfg, card)
+             rates["zarr prediction"], zarr_pred, zarr_store) = \
+                phase_zarr_main(torch, cuda_lib, tmp, sv, zreader, cfg, card)
         if 7 in phases:
             by_path["zarr_eval"], rates["zarr evaluation"] = \
                 phase_zarr_eval(torch, cuda_lib, zreader, cfg, card)
+        if 8 in phases:
+            by_path["zarr_serving"], rates["serving preset"] = \
+                phase_serving(torch, cuda_lib, tmp, zreader, zarr_pred, card)
+        if 9 in phases:
+            by_path["memm_static_grid"] = phase_static_grid(
+                torch, cuda_lib, tmp, cfg, card)
+        if 10 in phases:
+            paths, r = phase_meta(torch, cuda_lib, ech_dir, reader, cfg,
+                                  card)
+            by_path.update(paths)
+            rates.update(r)
+        if 11 in phases:
+            paths, r = phase_school(torch, cuda_lib, tmp, cfg, [
+                ("memm", cfg, [reader], memm_store),
+                ("zarr", dict(cfg, data_mode="zarr"), [zreader],
+                 zarr_store)], card)
+            by_path.update(paths)
+            rates.update(r)
     if phases >= {2, 4, 5}:
         for name in KERNELS:
             check(launches.get(name, 0) > 0,

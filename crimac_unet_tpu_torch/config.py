@@ -63,6 +63,39 @@ CONFIG_DEFAULTS = {
     "device": None,               # None = cuda (raises without a card)
 }
 
+# The production serving preset, crimac_unet_tpu/configs/config_serving.yaml,
+# as a dict for hosts without pyyaml: zarr surveys, the fully-convolutional
+# slab forward, one grid shape per survey, uint8 dB codes in and uint8
+# probability codes out.
+SERVING_PRESET = {
+    "random_seed": 10, "frequencies": [18, 38, 120, 200],
+    "data_mode": "zarr", "num_workers": 4, "patch_size": [256, 256],
+    "meta_channels": [], "late_meta_inject": False, "loss_type": "CE",
+    "batch_size": 4, "lr": 0.005, "lr_reduction": 0.5, "momentum": 0.95,
+    "test_iter": 1000, "log_step": 2500, "lr_step": 1000,
+    "iterations": 15000, "partition_train": "selected surveys",
+    "train_surveys": [2011, 2013, 2014, 2015, 2016],
+    "validation_surveys": [2017], "save_model_params": True,
+    "eval_mode": "all", "partition_predict": "all surveys",
+    "evaluation_surveys": [], "labels_available": True,
+    "patch_overlap": 20, "preload_n_pings": 1000,
+    "save_prediction_surveys": [], "resume_writing": True,
+    "save_labels": False, "mesh_devices": 0, "compute_dtype": "bfloat16",
+    "train_dtype": "bfloat16", "fwd_batch": 32, "prefetch_depth": 2,
+    "use_device_pool": "auto", "device_pool_budget_mb": 2048,
+    "checkpoint_every": 0, "fold_bn": True, "pipeline_depth": 3,
+    "static_grid": True, "infer_mode": "slab", "transfer_dtype": "uint8",
+    "output_dtype": "uint8", "dts_upsample": False,
+    "alignment_warning": False,
+}
+
+# The six metadata channel families of
+# crimac_unet_tpu/configs/config_meta_train.yaml (7 input bands).
+META_CHANNELS_ALL = {
+    "portion_year": True, "portion_day": True, "time_diff": True,
+    "depth_rel": True, "depth_abs_surface": True, "depth_abs_seabed": True,
+}
+
 
 def load_yaml_config(path):
     """Load a YAML config file into a dict (reference utils/general.py:33).

@@ -16,6 +16,12 @@ per level (4 -> 64 -> ... -> 1024 at depth 5, ~31M parameters).
 * Casting follows flax: parameters are float32; conv inputs and weights are
   cast to the compute ``dtype``, the bias is added in the compute dtype,
   eval BatchNorm runs in float32 and casts back.
+* Metadata channels (``meta_channels``): early inject widens the input to
+  ``len(frequencies) + get_in_channels(meta_channels)`` bands; late inject
+  (``late_meta_inject``) runs the reference's per-pixel MLP over the
+  metadata and concatenates its one channel before ``conv_final``
+  (reference unet.py:346-391, state-dict names
+  ``post_processing_weights.main.{0,2,4}``).
 * The level-0 pool runs through the hand-written kernels
   (ops/pool.py): with BatchNorm folded (``use_bn=False``) the raw conv2
   output goes to ``relu_pool_skip``; with BatchNorm it is ``maxpool2x2``
@@ -112,21 +118,46 @@ class UpConv(nn.Module):
         return torch.relu(_bn(_conv(x, self.conv2, dtype), self.bn2, dtype))
 
 
+class MetaPostProcessing(nn.Module):
+    """Per-pixel MLP over the metadata channels, Linear 32 -> ReLU -> 32 ->
+    ReLU -> ``out_features`` (reference unet.py:140-166; JAX
+    ``models/unet.py`` ``MetaPostProcessing``).  NHWC in and out, so the
+    Linear layers act on the channel axis directly.  Cast as flax's Dense:
+    input and weight in the compute dtype, the bias added in it."""
+
+    def __init__(self, in_features, out_features=1):
+        super().__init__()
+        self.main = nn.Sequential(
+            nn.Linear(in_features, 32), nn.ReLU(), nn.Linear(32, 32),
+            nn.ReLU(), nn.Linear(32, out_features))
+
+    def forward(self, x, dtype):
+        for i in (0, 2, 4):
+            fc = self.main[i]
+            x = F.linear(x.to(dtype), fc.weight.to(dtype)) + fc.bias.to(dtype)
+            if i < 4:
+                x = torch.relu(x)
+        return x
+
+
 class UNet(nn.Module):
     """U-Net encoder/decoder, eval mode only: NHWC in, NHWC float32
     logits out.  ``use_bn=False`` is the BatchNorm-folded serving form
-    (models/fold_bn.py)."""
+    (models/fold_bn.py).  ``late_meta_inject`` adds the metadata MLP over
+    ``meta_channels`` input channels; ``forward`` then takes ``meta``."""
 
     def __init__(self, n_classes=3, depth=5, start_filts=64, in_channels=4,
-                 late_meta_inject=False, dtype=torch.float32, use_bn=True):
+                 late_meta_inject=False, dtype=torch.float32, use_bn=True,
+                 meta_channels=0):
         super().__init__()
-        if late_meta_inject:
-            raise NotImplementedError(
-                "late_meta_inject is not ported yet (ROADMAP.md queue A: "
-                "infer_mode slab, static_grid and meta channels)")
+        if late_meta_inject and meta_channels < 1:
+            raise ValueError("late_meta_inject needs at least one metadata "
+                             "channel (meta_channels)")
         self.hparams = dict(n_classes=n_classes, depth=depth,
                             start_filts=start_filts, in_channels=in_channels,
-                            dtype=dtype, use_bn=use_bn)
+                            late_meta_inject=late_meta_inject, dtype=dtype,
+                            use_bn=use_bn, meta_channels=meta_channels)
+        self.late_meta_inject = late_meta_inject
         self.depth = depth
         self.dtype = dtype
         self.use_bn = use_bn
@@ -139,14 +170,21 @@ class UNet(nn.Module):
         for _ in range(depth - 1):
             ins, outs = outs, outs // 2
             self.up_convs.append(UpConv(ins, outs, use_bn))
+        if late_meta_inject:
+            self.post_processing_weights = MetaPostProcessing(meta_channels)
+            outs += 1
         self.conv_final = nn.Conv2d(outs, n_classes, 1)
 
     @torch.no_grad()
-    def forward(self, x):
+    def forward(self, x, meta=None):
+        """``x`` (B, H, W, C) NHWC; ``meta`` (B, H, W, M) NHWC metadata for
+        late inject (early inject concatenates it into ``x``)."""
         if self.training:
             raise NotImplementedError(
                 "the port's U-Net is eval-only so far (training is "
                 "ROADMAP.md queue A); call .eval()")
+        if self.late_meta_inject and meta is None:
+            raise ValueError("late_meta_inject requires meta input")
         x = _nchw(x.contiguous()).to(self.dtype)  # channels_last NCHW view
         encoder_outs = []
         for i, down in enumerate(self.down_convs):
@@ -154,36 +192,46 @@ class UNet(nn.Module):
             encoder_outs.append(before_pool)
         for i, up in enumerate(self.up_convs):
             x = up(encoder_outs[-(i + 2)], x, self.dtype)
+        if self.late_meta_inject:
+            m = self.post_processing_weights(meta, self.dtype)
+            x = torch.cat([x, _nchw(m)], dim=1)
         return _nhwc(_conv(x, self.conv_final, self.dtype).float())
 
 
 def build_unet(config: dict) -> UNet:
     """The flagship model from a merged config dict
     (reference SegPipeUNet, pipeline.py:379-410)."""
+    from ..data.meta_channels import get_in_channels
     name = str(config.get("compute_dtype", "float32"))
     if name not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of "
                          f"{sorted(COMPUTE_DTYPES)}, got {name!r}")
+    n_meta = get_in_channels(config.get("meta_channels"))
+    late = bool(config.get("late_meta_inject", False))
+    n_freq = len(config.get("frequencies", (18, 38, 120, 200)))
+    # early inject: the metadata bands follow the acoustic ones
+    # (reference pipeline.py:413-425)
     return UNet(n_classes=3, depth=int(config.get("depth", 5)),
                 start_filts=int(config.get("start_filts", 64)),
-                in_channels=len(config.get("frequencies", (18, 38, 120, 200))),
-                late_meta_inject=bool(config.get("late_meta_inject", False)),
-                dtype=COMPUTE_DTYPES[name])
+                in_channels=n_freq + (0 if late else n_meta),
+                late_meta_inject=late, dtype=COMPUTE_DTYPES[name],
+                meta_channels=n_meta if late else 0)
 
 
 @torch.no_grad()
 def init_random_(model: UNet, generator: torch.Generator) -> UNet:
-    """Seeded random weights (smoke runs, tests): conv and transpose-conv
-    weights and biases U(+-1/sqrt(fan_in)) with torch's fan-in convention
-    (weight.size(1) * kh * kw, for transpose convs too), and BatchNorm
+    """Seeded random weights (smoke runs, tests): conv, transpose-conv and
+    linear weights and biases U(+-1/sqrt(fan_in)) with torch's fan-in
+    convention (weight.size(1) * kh * kw, for transpose convs too), and
+    BatchNorm
     statistics and affine drawn around identity so folding is not a
     no-op."""
     def uniform_(t, lo, hi):
         t.copy_(torch.rand(t.shape, generator=generator) * (hi - lo) + lo)
 
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-            fan_in = m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
             b = fan_in ** -0.5
             uniform_(m.weight, -b, b)
             uniform_(m.bias, -b, b)

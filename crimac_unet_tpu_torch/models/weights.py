@@ -10,6 +10,8 @@ for callers that hold JAX variables as numpy arrays (tests, tools).
 Layout conversion (flax -> reference):
   Conv         (kh, kw, I, O)                      -> (O, I, kh, kw)
   ConvTranspose (kh, kw, I, O), spatially flipped  -> (I, O, kh, kw)
+  Dense        (I, O)  meta_mlp/fc{1,2,3}          -> (O, I)
+               post_processing_weights.main.{0,2,4}
 """
 
 from __future__ import annotations
@@ -70,6 +72,16 @@ def flax_to_torch_state_dict(variables: dict) -> dict:
         put_bn(f"{p}.bn2", fp["unit2"]["bn"], fs["unit2"]["bn"])
 
     put_conv("conv_final", params["conv_final"])
+
+    if "meta_mlp" in params:
+        # late-inject metadata MLP (crimac_unet_tpu/models/torch_import.py
+        # flax_to_torch_state_dict)
+        for i, fc in ((0, "fc1"), (2, "fc2"), (4, "fc3")):
+            p = f"post_processing_weights.main.{i}"
+            sd[p + ".weight"] = np.ascontiguousarray(
+                np.asarray(params["meta_mlp"][fc]["kernel"], np.float32).T)
+            sd[p + ".bias"] = np.asarray(params["meta_mlp"][fc]["bias"],
+                                         np.float32)
     return sd
 
 

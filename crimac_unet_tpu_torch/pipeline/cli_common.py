@@ -1,6 +1,7 @@
-"""Preamble of the evaluation CLI (argparse -> YAML merge -> seed ->
-checkpoint -> model/runner -> partition -> output directories named after
-the checkpoint's run), as the JAX package's
+"""Preamble of the checkpoint-consuming CLIs, ``evaluate`` and
+``school_eval`` (argparse -> YAML merge -> seed -> checkpoint ->
+model/runner -> partition -> output directories named after the
+checkpoint's run), as the JAX package's
 ``crimac_unet_tpu/pipeline/cli_common.py``."""
 
 from __future__ import annotations
@@ -31,27 +32,37 @@ def checkpoint_run_id(checkpoint_path) -> str:
     return os.path.splitext(parts[-1])[0]
 
 
-def load_eval_context(argv=None) -> EvalContext:
+def load_eval_context(argv=None, want_plots: bool = False,
+                      need_runner=True) -> EvalContext:
     """Parse the ``eval`` flag set, load the reference ``.pt`` state dict
     into a GriddedRunner on ``config['device']`` (cuda when absent),
-    build the data partition and create the per-run metrics and plot
-    directories."""
+    build the data partition and create the per-run metrics (and, with
+    ``want_plots``, plot) directories.
+
+    ``need_runner`` is a bool or a ``callable(config) -> bool`` decided
+    after the YAML merge: when False no checkpoint is loaded, no model is
+    built, no device is touched and ``ctx.runner`` is None (school_eval's
+    from-predictions mode)."""
     from ..config import (get_argparse_parser, load_yaml_config,
                           parse_config_options)
     from ..data.partition import make_partition
-    from ..models.unet import build_unet
-    from ..models.weights import load_checkpoint
     from ..utils.general import fix_seeds
-    from .runner import GriddedRunner
 
     args = get_argparse_parser("eval").parse_args(argv)
     config = parse_config_options(load_yaml_config(args.yaml_path), args)
     experiment_name = Path(config["yaml_path"]).stem
 
     fix_seeds(config["random_seed"])
-    runner = GriddedRunner(build_unet(config),
-                           load_checkpoint(config["checkpoint_path"]),
-                           config, device=config.get("device"))
+    if callable(need_runner):
+        need_runner = bool(need_runner(config))
+    runner = None
+    if need_runner:
+        from ..models.unet import build_unet
+        from ..models.weights import load_checkpoint
+        from .runner import GriddedRunner
+        runner = GriddedRunner(build_unet(config),
+                               load_checkpoint(config["checkpoint_path"]),
+                               config, device=config.get("device"))
 
     print(f'\nLoading {config["data_mode"]} data partition object...')
     start = time.time()
@@ -66,7 +77,7 @@ def load_eval_context(argv=None) -> EvalContext:
                                    experiment_name, run_id)
         os.makedirs(metrics_dir, exist_ok=True)
         print("Metrics directory:", metrics_dir)
-    if config.get("save_path_plot") is not None:
+    if want_plots and config.get("save_path_plot") is not None:
         plot_dir = os.path.join(str(config["save_path_plot"]),
                                 experiment_name, run_id)
         os.makedirs(plot_dir, exist_ok=True)

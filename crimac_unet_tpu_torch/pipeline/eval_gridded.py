@@ -7,7 +7,8 @@ column-group loop over ``GriddedRunner._eval_patches``: a prefetch thread
 builds the next group's host slabs and starts their host-to-device copy
 on a side stream from pinned memory while the main thread enqueues the
 current group, and each group's int32 histogram is drained into an int64
-host total one group behind.  Memmap and zarr surveys.
+host total one group behind.  Memmap and zarr surveys; metadata channels
+(memmap) and the static grid (``fixed_R``).
 """
 
 from __future__ import annotations
@@ -23,9 +24,10 @@ from ..ops.label_ops import (BIG_ROW, REFINE_THRESHOLD_HI,
                              REFINE_THRESHOLD_LO)
 from ..ops.patches import grid_dims, make_grid_starts
 from .infer_common import (_convert_labels_host, _fill_hwc_slab,
-                           _grid_extent_rows, _quantize_db_u8)
+                           _grid_extent_rows, _quantize_db_u8,
+                           grid_center_cols)
 from .predict import _to_device
-from .runner import GriddedRunner
+from .runner import GriddedRunner, _build_meta_inputs
 
 
 def evaluate_reader(runner: GriddedRunner, reader, hist, eval_mode="all",
@@ -43,11 +45,12 @@ def evaluate_reader(runner: GriddedRunner, reader, hist, eval_mode="all",
     in int32 and is drained one group behind into a 64-bit total, so
     survey-scale counts cannot wrap.  ``hist`` is an incoming histogram
     (any integer array, host or device) to add to.
+
+    ``fixed_R`` (static_grid over several readers): the grid runs at
+    least ``fixed_R`` rows; the pad-row patches are force-ignored through
+    the live flag, so the histogram is the per-reader one exactly (JAX
+    eval_gridded.py:46-65).
     """
-    if fixed_R is not None:
-        raise NotImplementedError(
-            "static_grid is not ported yet (ROADMAP.md queue A: "
-            "infer_mode slab, static_grid and meta channels)")
     wh, ww = runner.window
     o = runner.overlap
     sh, sw = runner.stride
@@ -62,7 +65,8 @@ def evaluate_reader(runner: GriddedRunner, reader, hist, eval_mode="all",
     seabed_has = np.asarray(reader.seabed_known(0, n_pings))
     sb_abs = np.where(seabed_has, seabed_full, BIG_ROW).astype(np.int64)
 
-    R = _grid_extent_rows(n_range, seabed_full, seabed_has, wh, o)
+    R_ref = _grid_extent_rows(n_range, seabed_full, seabed_has, wh, o)
+    R = max(R_ref, int(fixed_R)) if fixed_R else R_ref
     C_total = grid_dims(0, n_pings, ww, o)
     col_groups = [(j, min(j + chunk_cols, C_total))
                   for j in range(0, C_total, chunk_cols)]
@@ -72,8 +76,9 @@ def evaluate_reader(runner: GriddedRunner, reader, hist, eval_mode="all",
     keep_pad = (0, 0)
     if eval_mode in ("region", "trace"):
         # padded frame covering every consulted slab pixel, out-of-survey
-        # grid margins included (the reference masks those too)
-        keep_pad = (max(o, R * sh + o - n_range, 0),
+        # grid margins included (the reference masks those too); the
+        # static grid's pad rows are never consulted
+        keep_pad = (max(o, R_ref * sh + o - n_range, 0),
                     max(o, C_total * sw + o - n_pings, 0))
         keep_global = _build_keep_mask(reader, eval_mode, extend_size,
                                        n_range, n_pings, pad=keep_pad)
@@ -93,7 +98,9 @@ def evaluate_reader(runner: GriddedRunner, reader, hist, eval_mode="all",
         sw_w = max(slab_x1 - slab_x0, 0)
 
         runner.timer.start("eval_host_slab")
-        slab_y1 = min(n_range, R * sh + o)
+        # filled (and labels read) to the reference grid's bottom row only:
+        # the static grid's pad-row patches are force-ignored
+        slab_y1 = min(n_range, R_ref * sh + o)
         # ship only the data-bearing rows; _eval_patches re-grows the pad
         Hs = min(o + slab_y1, Hp)
         data_slab = np.zeros((Hs, Wp, len(runner.frequencies)), np.float32)
@@ -116,8 +123,11 @@ def evaluate_reader(runner: GriddedRunner, reader, hist, eval_mode="all",
         if keep_global is not None:
             # slab row i <-> survey row i - o, slab col j <-> want_x0 + j
             pr, pc = keep_pad
-            host["keep_slab"] = np.ascontiguousarray(keep_global[
-                pr - o:pr - o + Hp, pc + want_x0:pc + want_x0 + Wp])
+            Hp_ref = min(R_ref * sh + 2 * o, Hp)
+            keep_slab = np.zeros((Hp, Wp), np.bool_)
+            keep_slab[:Hp_ref] = keep_global[
+                pr - o:pr - o + Hp_ref, pc + want_x0:pc + want_x0 + Wp]
+            host["keep_slab"] = keep_slab
 
         sb_pad = np.full(Wp, BIG_ROW, np.int64)
         if sw_w > 0:
@@ -125,11 +135,20 @@ def evaluate_reader(runner: GriddedRunner, reader, hist, eval_mode="all",
 
         y0s, x0s = make_grid_starts(R, Cc, sh, sw, o, o, o)
         patch_y0_data = np.repeat(np.arange(R) * sh, Cc) - o
-        # live flag: 1 here; the sub-batch pad below gets 0
-        live = np.ones(len(y0s))
+        # live flag: 0 for the static grid's pad rows (beyond the
+        # reference grid) and the sub-batch pad below
+        live = np.repeat(np.arange(R) < R_ref, Cc)
         starts = np.stack([y0s, x0s, patch_y0_data, live]).astype(np.int32)
         _, Np, _ = runner._sub_batch_shape(len(y0s))
         starts = np.pad(starts, ((0, 0), (0, Np - len(y0s))))
+        if runner.use_meta:
+            # memmap only: the builder raises ValueError on a zarr reader
+            centers_x = grid_center_cols(
+                np.tile(np.arange(j0, j1) * sw, R) - o, ww)
+            meta_slab, consts = _build_meta_inputs(
+                runner, reader, Hp, Wp, -o, want_x0, centers_x)
+            host["meta_slab"] = meta_slab.transpose(1, 2, 0)
+            host["consts"] = np.pad(consts, ((0, Np - len(y0s)), (0, 0)))
 
         # transfer_dtype quantization: the refine threshold predicate is
         # computed here from the exact float32 sv and ships as packed bits,
@@ -180,7 +199,8 @@ def evaluate_reader(runner: GriddedRunner, reader, hist, eval_mode="all",
                 metrics.new_histogram(runner.device), dev["data_slab"],
                 dev["label_slab"], dev["sb_pad"], dev.get("keep_slab"),
                 dev.get("thr_slab"), dev["starts"], N, grid_h=Hp,
-                zarr_pad=is_zarr)
+                zarr_pad=is_zarr, meta_slab=dev.get("meta_slab"),
+                consts=dev.get("consts"))
             runner.timer.stop("eval_device_chunk")
             # drain one group behind: the copy waits only for the previous
             # group while this one is already enqueued

@@ -18,18 +18,27 @@ import os
 from ..constants import EVAL_MODE_MAP
 from ..ops import metrics as M
 from .eval_gridded import evaluate_reader
+from .infer_common import grid_height_for_reader
 from .segpipe import save_metrics_dict, save_pr_plot
 
 
 def evaluate_survey(runner, readers, eval_mode, save_path_metrics=None,
                     save_path_plot=None, progress=False):
     """One PR curve per survey over all its readers (reference
-    evaluate.py:39-117 concatenates readers into one metric)."""
+    evaluate.py:39-117 concatenates readers into one metric).  Under
+    ``static_grid`` every reader runs the survey-max grid height (JAX
+    evaluate.py:31-46); the histogram is the per-reader one."""
     hist = M.new_histogram()
+    readers = list(readers)
+    fixed_R = None
+    if runner.static_grid and readers:
+        fixed_R = max(grid_height_for_reader(r, runner.window[0],
+                                             runner.overlap)
+                      for r in readers)
     for reader in readers:
         hist = evaluate_reader(runner, reader, hist,
                                eval_mode=EVAL_MODE_MAP[eval_mode],
-                               progress=progress)
+                               progress=progress, fixed_R=fixed_R)
     curve = M.pr_curve_from_histogram(hist)
     if save_path_metrics is not None:
         save_metrics_dict(curve, save_path_metrics)
@@ -43,7 +52,7 @@ def evaluate_survey(runner, readers, eval_mode, save_path_metrics=None,
 def main(argv=None):
     from .cli_common import load_eval_context
 
-    ctx = load_eval_context(argv)
+    ctx = load_eval_context(argv, want_plots=True)
     for survey in ctx.data_obj.get_evaluation_surveys():
         readers = ctx.data_obj.get_survey_readers(survey)
         print("Running evaluation for", survey)

@@ -2,9 +2,10 @@
 
 Quantization laws (h2d dB codes, d2h probability codes), the device-side
 bit-unpack for packed predicate masks, the host label conversion of
-quantized-transfer eval, the HWC slab filler and the reference grid-extent
-law — used by pipeline/predict.py, pipeline/eval_gridded.py and
-pipeline/runner.py.  Same laws as the JAX package's
+quantized-transfer eval, the HWC slab filler, the reference grid-extent
+law and the static-grid and metadata grid helpers — used by
+pipeline/predict.py, pipeline/eval_gridded.py and pipeline/runner.py.  Same
+laws as the JAX package's
 ``crimac_unet_tpu/pipeline/infer_common.py``.
 """
 
@@ -113,6 +114,14 @@ def _fill_hwc_slab(reader, frequencies, data_slab, slab_x0, slab_x1,
             m[:slab_y1, slab_x0:slab_x1]
 
 
+def grid_center_cols(x0_data, ww):
+    """Patch-center ping coordinates from crop-origin ping coordinates: the
+    inverse of the reference crop law on the ping axis for both window
+    parities (origin = center - (ww+1)//2 + 1, so center = origin - 1 +
+    (ww+1)//2)."""
+    return np.asarray(x0_data) - 1 + (ww + 1) // 2
+
+
 def _grid_extent_rows(n_range: int, seabed, known, wh: int, o: int) -> int:
     """Reference grid height (patch-grid rows) for one seabed vector: range
     capped at max seabed + 50, pings WITHOUT a seabed estimate counting as
@@ -120,3 +129,20 @@ def _grid_extent_rows(n_range: int, seabed, known, wh: int, o: int) -> int:
     sb_eff = np.where(known, seabed, n_range)
     end_range = int(min(max(sb_eff.max() + 50, 1), n_range))
     return grid_dims(0, end_range, wh, o)
+
+
+def grid_height_for_reader(reader, wh: int, o: int,
+                           start_ping: int = 0) -> int:
+    """Reference grid height (patch-grid rows) for one reader, by the
+    extent law of evaluate_reader and predict_reader.  Callers evaluating
+    several readers under ``static_grid`` take the max over readers and
+    pass it as ``fixed_R``; ``start_ping`` restricts the seabed scan to
+    the pings a prediction starting there covers."""
+    if reader.data_format == "zarr":
+        n_pings, n_range = reader.shape
+    else:
+        n_range, n_pings = reader.shape
+    sb = np.asarray(reader.get_seabed(0, n_pings)).astype(np.int64)
+    has = np.asarray(reader.seabed_known(0, n_pings))
+    return _grid_extent_rows(n_range, sb[start_ping:], has[start_ping:],
+                             wh, o)

@@ -3,12 +3,15 @@
 Reproduces the reference's save_predict chunked pipeline
 (save_predict.py:87-265), as the JAX package's
 ``crimac_unet_tpu/pipeline/predict.py`` does, as a software-pipelined
-host/device loop: prefetch threads build one raw slab per ping chunk and
-start its host-to-device copy on a side stream from pinned memory, the
-main thread enqueues the chunk's device work (runner.py), each chunk's
-output comes back through a pinned buffer with an event that ``_drain``
-waits on, ``pipeline_depth`` chunks behind, and the zarr writer appends
-it to the prediction store from one ordered writer thread.
+host/device loop: prefetch threads build one raw slab per ping chunk (and
+its metadata channels) and start its host-to-device copy on a side stream
+from pinned memory, the main thread enqueues the chunk's device work
+(runner.py: patch or slab mode), each chunk's output comes back through a
+pinned buffer with an event that ``_drain`` waits on, ``pipeline_depth``
+chunks behind, and the zarr writer appends it to the prediction store
+from one ordered writer thread.  ``static_grid`` runs every chunk of a
+reader (or of a survey, through ``fixed_R``/``fixed_C``) on one grid
+shape.
 """
 
 from __future__ import annotations
@@ -26,8 +29,42 @@ from ..ops.label_ops import BIG_ROW
 from ..ops.patches import grid_dims, make_grid_starts
 from ..utils.preload_split import get_data_split
 from .infer_common import (_U8_PROB_DEQUANT, _fill_hwc_slab,
-                           _grid_extent_rows, _quantize_db_u8, _round_up)
-from .runner import GriddedRunner
+                           _grid_extent_rows, _quantize_db_u8, _round_up,
+                           grid_center_cols, grid_height_for_reader)
+from .runner import GriddedRunner, _build_meta_inputs, _build_meta_slab_full
+
+
+def static_grid_shape_for_reader(reader, window, overlap: int,
+                                 preload_n_pings: int, start_ping: int = 0):
+    """(grid rows, grid cols) of one reader's static (survey-max) predict
+    grid: rows from the reader-max seabed, cols from its widest preload
+    split (JAX predict.py ``static_grid_shape_for_reader``).  Survey-level
+    callers take the elementwise max over readers and pass it as
+    ``fixed_R``/``fixed_C``, so every reader runs one grid shape."""
+    wh, ww = window
+    n_pings = reader.shape[0] if reader.data_format == "zarr" \
+        else reader.shape[1]
+    chunk = preload_n_pings if preload_n_pings > 0 else 5000
+    splits = get_data_split([[start_ping, n_pings]], chunk)
+    if not len(splits):
+        return 0, 0
+    R = grid_height_for_reader(reader, wh, overlap,
+                               start_ping=int(splits[0][0]))
+    C = max(grid_dims(int(a), int(b), ww, overlap) for a, b in splits)
+    return R, C
+
+
+def survey_static_grid(runner, readers, preload_n_pings):
+    """``(fixed_R, fixed_C)`` of a survey under ``static_grid``: the
+    elementwise max of its readers' static grids, so every reader (a memm
+    survey writes one file per echogram) runs one grid shape (JAX
+    save_predict.py:39-54); ``(None, None)`` otherwise or for one
+    reader."""
+    if not runner.static_grid or len(readers) < 2:
+        return None, None
+    dims = [static_grid_shape_for_reader(r, runner.window, runner.overlap,
+                                         preload_n_pings) for r in readers]
+    return max(d[0] for d in dims), max(d[1] for d in dims)
 
 
 def _keep_row_bound(fin, zero, sb_vec, row_cut, nr, zarr_band=None):
@@ -55,14 +92,15 @@ def _keep_row_bound(fin, zero, sb_vec, row_cut, nr, zarr_band=None):
 
 @dataclasses.dataclass(frozen=True)
 class ChunkGeometry:
-    """The reference patch grid of one ping chunk and the extents of its
-    HWC slab (slab coordinates: row 0 / column 0 are the top-left of the
+    """The patch grid of one ping chunk and the extents of its HWC slab
+    (slab coordinates: row 0 / column 0 are the top-left of the
     zero-padded grid)."""
-    R: int            # grid rows
+    R: int            # grid rows (the static grid's under static_grid)
     C: int            # grid columns
     Hs: int           # shipped slab rows (<= the grid height Hp)
     Wp: int           # slab columns
     row_cut: int      # rows [0, row_cut) of the chunk can be written
+    nr: int           # rows of the write-mask inputs and the output
     slab_x0: int      # survey columns [slab_x0, slab_x1) fill the slab
     slab_x1: int
     slab_y1: int      # survey rows [0, slab_y1) fill the slab
@@ -71,36 +109,53 @@ class ChunkGeometry:
 
 
 def chunk_geometry(window, overlap, n_range, n_pings, seabed, known, s, e,
-                   is_zarr=False):
-    """Grid and slab extents of chunk [s, e): the grid height from the
-    chunk's seabed (reference gridded.py:121-163), survey reads limited
-    to the columns live patches read, and only the data-bearing rows
-    [0, o + slab_y1) shipped — the gather kernel reads the rows below as
-    the zero pad.  Zarr chunks take the reference preload's column extent
-    (dataset.py:175-184), which after the clip reads one column less on
-    the right than a memmap chunk, and zero no border."""
+                   is_zarr=False, fixed=None):
+    """Grid and slab extents of chunk [s, e): the reference grid (R_ref,
+    C_ref) with its height from the chunk's seabed (reference
+    gridded.py:121-163), survey reads limited to the columns live patches
+    read, and only the data-bearing rows [0, o + slab_y1) shipped — the
+    gather kernel reads the rows below as the zero pad.  Zarr chunks take
+    the reference preload's column extent (dataset.py:175-184), which
+    after the clip reads one column less on the right than a memmap
+    chunk, and zero no border.
+
+    ``fixed`` = (R_fix, C_fix) is the static grid (JAX predict.py
+    :109-119,188-229,263-269): the grid grows to at least that shape,
+    while every data-bearing extent (the slab fill, the label read, the
+    row cutoff) stays the reference grid's, so the pad rows and columns
+    read zeros and are discarded.  The shipped height and the mask rows
+    are pinned to the static grid."""
     wh, ww = window
     o = overlap
     sh, sw = wh - 2 * o, ww - 2 * o
-    R = _grid_extent_rows(n_range, seabed[s:e], known[s:e], wh, o)
-    C = grid_dims(s, e, ww, o)
+    R_ref = _grid_extent_rows(n_range, seabed[s:e], known[s:e], wh, o)
+    C_ref = grid_dims(s, e, ww, o)
+    static = fixed is not None
+    R, C = (max(fixed[0], R_ref), max(fixed[1], C_ref)) if static \
+        else (R_ref, C_ref)
+    Hp = R * sh + 2 * o
     if is_zarr:
         first_center = s - o - 1 + ww // 2
-        last_center = s + (C - 1) * sw - o - 1 + ww // 2
+        last_center = s + (C_ref - 1) * sw - o - 1 + ww // 2
         slab_x0 = max(0, first_center - ww // 2)
         slab_x1 = min(n_pings, last_center + ww // 2)
     else:
         slab_x0 = max(0, s - o)
-        slab_x1 = min(n_pings, s + C * sw + o)
-    # patches only ever read data columns [s - o, s + C*sw + o)
+        slab_x1 = min(n_pings, s + C_ref * sw + o)
+    # patches only ever read data columns [s - o, s + C_ref*sw + o): static
+    # pad columns read zeros, not data the reference grid never saw
     slab_x0 = max(slab_x0, s - o)
-    slab_x1 = min(slab_x1, s + C * sw + o)
-    slab_y1 = min(n_range, R * sh + o)
+    slab_x1 = min(slab_x1, s + C_ref * sw + o)
+    # filled to the reference grid's bottom data row even when the static
+    # grid is taller: slab-mode convolutions read context below the kept
+    # rows, so a deeper fill would move kept outputs near the cutoff
+    slab_y1 = min(n_range, R_ref * sh + o)
     x_off = o + (slab_x0 - s)
     return ChunkGeometry(
-        R=R, C=C, Hs=min(o + slab_y1, R * sh + 2 * o), Wp=C * sw + 2 * o,
-        row_cut=min(R * sh, n_range), slab_x0=slab_x0, slab_x1=slab_x1,
-        slab_y1=slab_y1, x_off=x_off,
+        R=R, C=C, Hs=Hp if static else min(o + slab_y1, Hp),
+        Wp=C * sw + 2 * o, row_cut=min(R_ref * sh, n_range),
+        nr=R * sh if static else min(R * sh, n_range),
+        slab_x0=slab_x0, slab_x1=slab_x1, slab_y1=slab_y1, x_off=x_off,
         # the memmap test transform zeroes dB data outside the data
         # extent (transforms.py:57-64); the zarr one does not
         border=None if is_zarr else
@@ -141,13 +196,21 @@ def _to_device(runner: GriddedRunner, host: dict, copy_stream) -> _Staged:
 
 
 def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
-                   start_ping=0, progress=False, save_labels=False):
+                   start_ping=0, progress=False, save_labels=False,
+                   fixed_R=None, fixed_C=None):
     """Yield (chunk_start, chunk_end, (2, n_range, w) float16 predictions,
     labels-or-None) for one reader, reproducing save_predict's chunked
     sliding window (save_predict.py:137-219).  ``save_labels`` also
     yields the chunk's (n_range, w) float32 raw label map masked by the
-    device write mask (zeros elsewhere)."""
+    device write mask (zeros elsewhere).
+
+    Under ``runner.static_grid`` every chunk runs the reader's static
+    grid (``static_grid_shape_for_reader``), grown to at least
+    ``fixed_R``/``fixed_C`` when a survey-level caller shares one grid
+    over several readers; in patch mode the outputs equal the per-chunk
+    grid's (live patches read the same slab values)."""
     o = runner.overlap
+    wh, ww = runner.window
     sh, sw = runner.stride
     is_zarr = reader.data_format == "zarr"
     if is_zarr:
@@ -161,6 +224,17 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
 
     seabed_full = np.asarray(reader.get_seabed(0, n_pings)).astype(np.int64)
     seabed_has = np.asarray(reader.seabed_known(0, n_pings))
+
+    # static_grid: one grid shape for every chunk (survey-max height,
+    # widest chunk); chunk_geometry keeps the reference grid's extents
+    static = runner.static_grid
+    fixed = None
+    if static and len(splits):
+        R_fix, C_fix = static_grid_shape_for_reader(
+            reader, runner.window, o, preload_n_pings, start_ping)
+        fixed = (max(R_fix, int(fixed_R or 0)),
+                 max(C_fix, int(fixed_C or 0)))
+    slab_mode = runner.infer_mode == "slab"
 
     # bfloat16 transfer of a zarr survey: the native codec decodes float32
     # chunks straight into bfloat16 bits (round to nearest even, NaN and
@@ -215,8 +289,9 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
         w = e - s
         runner.timer.start("host_slab")
         g = chunk_geometry(runner.window, o, n_range, n_pings, seabed_full,
-                           seabed_has, s, e, is_zarr)
-        R, C, Hs, row_cut = g.R, g.C, g.Hs, g.row_cut
+                           seabed_has, s, e, is_zarr, fixed)
+        R, C, Hs, row_cut, nr = g.R, g.C, g.Hs, g.row_cut, g.nr
+        Hp = R * sh + 2 * o
         data_slab = np.zeros((Hs, g.Wp, len(runner.frequencies)),
                              np.uint16 if bf16_bits else np.float32)
         runner.timer.start("host_fill")
@@ -224,8 +299,9 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
                        g.slab_x1, g.slab_y1, o, g.x_off)
         runner.timer.stop("host_fill")
 
-        # write-mask inputs: only rows [0, nr) (the grid-covered range)
-        nr = row_cut
+        # write-mask inputs: only rows [0, nr) (the grid-covered range;
+        # under static_grid the static grid's rows, the pad rows NaN
+        # labelled and beyond row_cut)
         runner.timer.start("host_label")
         if is_zarr:
             lab = reader.get_label_slice(s, w, 0, row_cut)  # (w, row_cut)
@@ -248,6 +324,23 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
         sb_vec = np.full(C * sw, BIG_ROW, np.int64)
         sb_vec[:w] = np.where(seabed_has[s:e], seabed_full[s:e], BIG_ROW)
         y0s, x0s = make_grid_starts(R, C, *runner.stride, o, o, o)
+        meta = {}
+        if runner.use_meta:
+            # metadata channels of the whole grid (memmap only: the
+            # builders raise ValueError on a zarr reader, as the JAX
+            # package does)
+            if slab_mode:
+                meta["meta_full"] = _build_meta_slab_full(
+                    runner, reader, Hp, g.Wp, -o, s - o)
+            else:
+                centers_x = grid_center_cols(
+                    s + np.tile(np.arange(C) * sw, R) - o, ww)
+                meta_slab, consts = _build_meta_inputs(
+                    runner, reader, Hp, g.Wp, -o, s - o, centers_x)
+                _, Np, _ = runner._sub_batch_shape(len(y0s))
+                meta["meta_slab"] = meta_slab.transpose(1, 2, 0)
+                meta["consts"] = np.pad(consts,
+                                        ((0, Np - len(y0s)), (0, 0)))
         runner.timer.stop("host_slab")
 
         # labels never ship: the write mask consults only isfinite(label)
@@ -261,7 +354,9 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
             # packed bitmask since the codes cannot carry NaN
             svf = np.ones((nr, C * sw), bool)
             avail = max(min(nr, Hs - o), 0)  # rows beyond are zeros: finite
-            svf[:avail, :w] = np.isfinite(data_slab[o:o + avail, o:o + w, 0])
+            w2 = C * sw if static else w
+            svf[:avail, :w2] = np.isfinite(
+                data_slab[o:o + avail, o:o + w2, 0])
             bit_planes.append(np.packbits(svf, axis=1))
             slab_xfer = torch.from_numpy(_quantize_db_u8(data_slab))
         elif bf16_bits:
@@ -272,7 +367,7 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
         else:
             slab_xfer = torch.from_numpy(data_slab)
         staged = _to_device(runner, dict(
-            data_slab=slab_xfer, lab_bits=np.stack(bit_planes),
+            meta, data_slab=slab_xfer, lab_bits=np.stack(bit_planes),
             sb_row=np.append(sb_vec, np.int64(row_cut))), copy_stream)
         runner.timer.stop("h2d_dispatch")
         # d2h crop bound, bucketed to 128-row multiples as in the JAX
@@ -295,15 +390,22 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
                 futs.append(executor.submit(prepare, *splits[n_submitted]))
                 n_submitted += 1
 
-            runner.patches_processed += len(y0s)
             runner.timer.start("device_chunk")
             dev = staged.ready()
-            y0p, x0p = runner.grid_starts(y0s, x0s)
-            stitched = runner._predict_patches(
-                dev["data_slab"], y0p, x0p, len(y0s), border_ext, R, C)
+            if slab_mode:
+                stitched = runner._predict_slab(
+                    dev["data_slab"], border_ext, R, C, dev.get("meta_full"))
+            else:
+                runner.patches_processed += len(y0s)
+                y0p, x0p = runner.grid_starts(y0s, x0s)
+                stitched = runner._predict_patches(
+                    dev["data_slab"], y0p, x0p, len(y0s), border_ext, R, C,
+                    dev.get("meta_slab"), dev.get("consts"))
+            # under static_grid the sv-finiteness columns are pinned to the
+            # grid width: the pad columns carry NaN labels (keep False)
             out, keep = runner._mask_output(
                 stitched, dev["lab_bits"], dev["data_slab"], dev["sb_row"],
-                nr, C * sw, w, zarr_pad=is_zarr)
+                nr, C * sw, C * sw if static else w, zarr_pad=is_zarr)
             # lossless d2h crop: rows at/below kr are identically zero
             out = out[:, :kr, :]
             # the keep mask crosses only when labels are exported
@@ -379,13 +481,15 @@ def _resume_point(group, target_dname, save_labels) -> int:
 def save_survey_predictions_zarr(runner, reader, target_dname,
                                  preload_n_pings=1000, resume_writing=False,
                                  model_name="model", progress=False,
-                                 save_labels=False):
+                                 save_labels=False, fixed_R=None,
+                                 fixed_C=None):
     """Write chunked predictions to a ``<name>_pred.zarr`` store with the
     reference's on-disk contract (save_predict.py:87-134): annotation array
     (category [27, 1], ping_time, range) float16, full-range chunks,
     append along ping_time, resume from the existing ping count.
     ``save_labels`` adds a masked (ping_time, range) float32 ``labels``
-    array."""
+    array.  ``fixed_R``/``fixed_C``: the survey-level static grid (see
+    predict_reader)."""
     import os
     import shutil
 
@@ -455,7 +559,9 @@ def save_survey_predictions_zarr(runner, reader, target_dname,
         for s, e, out, lab in predict_reader(runner, reader,
                                              preload_n_pings, start_ping,
                                              progress,
-                                             save_labels=save_labels):
+                                             save_labels=save_labels,
+                                             fixed_R=fixed_R,
+                                             fixed_C=fixed_C):
             if pending_write is not None:
                 pending_write.result()  # re-raises writer errors in order
             pending_write = writer.submit(write_chunk, s, e, out, lab)
@@ -473,17 +579,19 @@ def save_survey_predictions_zarr(runner, reader, target_dname,
 
 def save_reader_predictions_memm(runner, reader, target_dname,
                                  preload_n_pings=1000, resume_writing=False,
-                                 progress=False):
+                                 progress=False, fixed_R=None, fixed_C=None):
     """Memmap variant: accumulate into one (2, n_range, n_pings) array and
     save as .npy (save_predict.py:222-265; skips existing files when
-    resuming)."""
+    resuming).  ``fixed_R``/``fixed_C``: the survey-level static grid
+    (memm surveys run one file per echogram)."""
     import os
     if resume_writing and os.path.isfile(target_dname):
         return target_dname
     n_range, n_pings = reader.shape
     out = np.zeros((2, n_range, n_pings), np.float16)
     for s, e, chunk, _ in predict_reader(runner, reader, preload_n_pings, 0,
-                                         progress):
+                                         progress, fixed_R=fixed_R,
+                                         fixed_C=fixed_C):
         out[:, :, s:e] = chunk
     np.save(target_dname, out)
     return target_dname

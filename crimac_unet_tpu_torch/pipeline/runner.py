@@ -1,22 +1,28 @@
-"""GriddedRunner: the device side of gridded (patch-mode) prediction and
-evaluation.
+"""GriddedRunner: the device side of gridded prediction and evaluation.
 
 Holds the served (BatchNorm-folded by default) U-Net on its device and
 the per-chunk programs of the JAX package's runner
 (``crimac_unet_tpu/pipeline/runner.py``): ``_predict_patches`` (gather +
 dB in the gather_db kernel, U-Net forward in sub-batches, softmax,
-stitch), ``_mask_output`` (write-mask crop to the on-disk dtype) and
-``_eval_patches`` (per-patch test label chain, with the closing kernel,
-+ forward + PR histogram update).  Driven by pipeline/predict.py and
-pipeline/eval_gridded.py.
+stitch), ``_predict_slab`` (``infer_mode: slab``: the whole chunk in one
+gather_db window and one fully-convolutional forward), ``_mask_output``
+(write-mask crop to the on-disk dtype) and ``_eval_patches`` (per-patch
+test label chain, with the closing kernel, + forward + PR histogram
+update), each with the metadata channels (early or late inject) when
+``meta_channels`` is set, and the host builders of those channels.
+Driven by pipeline/predict.py and pipeline/eval_gridded.py.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..constants import LABEL_BOUNDARY_VAL, LABEL_IGNORE_VAL, SEABED_PAD
+from ..data.meta_channels import get_in_channels, validate_meta_channels
 from ..models.fold_bn import fold_for_serving
 from ..models.weights import to_tensors
 from ..ops import data_ops, label_ops, metrics
@@ -85,23 +91,46 @@ class GriddedRunner:
         if self.output_dtype not in ("float16", "uint8"):
             raise ValueError(f"output_dtype must be 'float16' or 'uint8', "
                              f"got {self.output_dtype!r}")
-        infer_mode = str(config.get("infer_mode", "patch"))
-        if infer_mode not in ("patch", "slab"):
+        # 'patch' (the reference's window formulation) or 'slab' (one
+        # fully-convolutional forward over the whole chunk; _predict_slab)
+        self.infer_mode = str(config.get("infer_mode", "patch"))
+        if self.infer_mode not in ("patch", "slab"):
             raise ValueError(f"infer_mode must be 'patch' or 'slab', "
-                             f"got {infer_mode!r}")
-        for key, on in (("infer_mode: slab", infer_mode == "slab"),
-                        ("static_grid", bool(config.get("static_grid"))),
-                        ("meta_channels", bool(config.get("meta_channels")))):
-            if on:
-                raise NotImplementedError(
-                    f"{key} is not ported yet (ROADMAP.md queue A: "
-                    "infer_mode slab, static_grid and meta channels)")
+                             f"got {self.infer_mode!r}")
+        # static_grid: every chunk of a survey runs one grid shape (the
+        # survey-max height, the full chunk width); a row cutoff in
+        # _mask_output discards the pad rows (pipeline/predict.py)
+        self.static_grid = bool(config.get("static_grid", False))
+        self.meta_channels = config.get("meta_channels") or None
+        validate_meta_channels(self.meta_channels)
+        self.use_meta = get_in_channels(self.meta_channels) > 0
+        self.late_meta = bool(config.get("late_meta_inject", False))
         self.timer = PhaseTimer()
         self.patches_processed = 0  # forward-pass patch count
         self.forwards = 0           # U-Net forward calls (sub-batches)
         wh, ww = self.window
         self.stride = (wh - 2 * self.overlap, ww - 2 * self.overlap)
         self._grid_cache: dict = {}
+        self._origin = torch.zeros(1, dtype=torch.int32, device=self.device)
+        if self.infer_mode == "slab":
+            # slab outputs agree with patch mode in patch interiors only
+            # when the slab's pooling grid lines up with every patch's:
+            # stride and overlap multiples of 2**(depth-1).  The baseline
+            # geometry (stride 216, overlap 20, alignment 16) is not, so
+            # slab and patch outputs differ slightly at every pixel (JAX
+            # runner.py:113-144, DIVERGENCES.md); alignment_warning: false
+            # silences the warning (config_serving.yaml)
+            div = 2 ** (self.model.depth - 1)
+            if (self.stride[0] % div or self.stride[1] % div
+                    or self.overlap % div) and \
+                    bool(config.get("alignment_warning", True)):
+                warnings.warn(
+                    f"infer_mode='slab' with stride {self.stride} / overlap "
+                    f"{self.overlap} not multiples of 2**(depth-1)={div}: "
+                    "the slab pooling grid is misaligned with the patch "
+                    "grid, so outputs diverge (slightly) from patch mode at "
+                    "every pixel, not only near patch borders "
+                    "(see DIVERGENCES.md)", stacklevel=2)
 
     def _sub_batch_shape(self, N: int) -> tuple[int, int, int]:
         return sub_batch_shape(N, self.fwd_batch)
@@ -120,13 +149,46 @@ class GriddedRunner:
             self._grid_cache[key] = dev
         return dev
 
-    def _predict_patches(self, data_slab, y0p, x0p, N, border_ext, R, C):
+    def _gather_meta(self, meta_slab, consts, y0s, x0s):
+        """(B, wh, ww, M) NHWC metadata patches: the per-patch constant
+        channels (portion_year/day) broadcast, then the per-pixel channels
+        (time_diff, depth_*) gathered from the (Hp, Wp, Ms) HWC meta slab —
+        the reference's channel order (dataset.py:288-351).  ``consts`` is
+        (B, Mc); the starts lie inside the slab."""
+        wh, ww = self.window
+        B = y0s.shape[0]
+        parts = []
+        if consts.shape[1] > 0:
+            parts.append(consts[:, None, None, :].expand(B, wh, ww, -1))
+        if meta_slab.shape[-1] > 0:
+            dev = meta_slab.device
+            rows = (y0s.long()[:, None] + torch.arange(wh, device=dev))
+            cols = (x0s.long()[:, None] + torch.arange(ww, device=dev))
+            parts.append(meta_slab[rows[:, :, None], cols[:, None, :]])
+        return torch.cat(parts, dim=-1)
+
+    def _forward(self, x, meta):
+        """U-Net forward with the metadata channels: early inject appends
+        them to the input bands, late inject hands them to the model's
+        metadata MLP.  ``meta`` is None without metadata channels."""
+        if meta is None:
+            return self.model(x)
+        if self.late_meta:
+            return self.model(x, meta)
+        return self.model(torch.cat([x, meta.to(x.dtype)], dim=-1))
+
+    def _predict_patches(self, data_slab, y0p, x0p, N, border_ext, R, C,
+                         meta_slab=None, consts=None):
         """Gather + dB + forward + softmax + stitch for one chunk: returns
         (R*sh, C*sw, 2) float32 [sandeel, other] probabilities in grid
         coordinates.  ``data_slab`` is the chunk's (Hs <= Hp, Wp, C) HWC
         slab on the device (rows below Hs are the zero pad, re-grown by the
         kernel); ``y0p``/``x0p`` the padded starts of ``grid_starts``;
-        ``border_ext`` the data rectangle (y0, y1, x0, x1) or None."""
+        ``border_ext`` the data rectangle (y0, y1, x0, x1) or None.  With
+        metadata channels the network input is the [0, 1]-scaled dB
+        (reference db_with_limits_scaled), the border zeroes only the
+        acoustic channels, and ``meta_slab`` (Hp, Wp, Ms) / ``consts``
+        (Np, Mc) hold the metadata (``_build_meta_inputs``)."""
         wh, ww = self.window
         B, Np, nb = self._sub_batch_shape(N)
         sel = torch.empty((Np, wh, ww, 2), dtype=torch.float32,
@@ -134,11 +196,45 @@ class GriddedRunner:
         for k in range(nb):
             sl = slice(k * B, (k + 1) * B)
             x = gather_db(data_slab, y0p[sl], x0p[sl], self.window,
-                          border=border_ext, out_dtype=self.model.dtype)
-            logits = self.model(x)
+                          border=border_ext, scaled=self.use_meta,
+                          out_dtype=self.model.dtype)
+            meta = self._gather_meta(meta_slab, consts[sl], y0p[sl],
+                                     x0p[sl]) if self.use_meta else None
+            logits = self._forward(x, meta)
             sel[sl] = torch.softmax(logits, dim=-1)[..., 1:3]
             self.forwards += 1
         return stitch_patches(sel[:N], R, C, self.overlap)
+
+    def _predict_slab(self, data_slab, border_ext, R, C, meta_full=None):
+        """Fully-convolutional whole-chunk forward (``infer_mode: slab``,
+        JAX runner.py ``_predict_slab``): returns (R*sh, C*sw, 2) float32
+        [sandeel, other] probabilities in grid coordinates.
+
+        The front end is one gather_db launch over the whole grid padded
+        to the pooling alignment: N = 1, start (0, 0), window (H16, W16).
+        Rows in [Hs, Hp) read as raw zeros (-75 dB, or code 0), and
+        everything outside ``border`` comes out 0.0, the H16/W16 pad
+        included — the JAX chain's _pad_slab, dB, border ``where`` and
+        ``jnp.pad``.  ``border_ext`` is the memmap data rectangle; zarr
+        chunks (None) zero only outside the (Hp, Wp) grid.  ``meta_full``
+        (Hp, Wp, M) holds the metadata channels of the whole grid
+        (``_build_meta_slab_full``), zero-padded to (H16, W16) here."""
+        sh, sw = self.stride
+        o = self.overlap
+        Hp, Wp = R * sh + 2 * o, C * sw + 2 * o
+        div = 2 ** (self.model.depth - 1)  # pooling alignment
+        H16, W16 = _round_up(Hp, div), _round_up(Wp, div)
+        border = border_ext if border_ext is not None else (0, Hp, 0, Wp)
+        x = gather_db(data_slab, self._origin, self._origin, (H16, W16),
+                      border=border, scaled=self.use_meta,
+                      out_dtype=self.model.dtype)
+        meta = None
+        if self.use_meta:
+            meta = F.pad(meta_full, (0, 0, 0, W16 - Wp, 0, H16 - Hp))[None]
+        logits = self._forward(x, meta)[0]
+        self.forwards += 1
+        probs = torch.softmax(logits, dim=-1)
+        return probs[o:o + R * sh, o:o + C * sw, 1:3]
 
     def _mask_output(self, stitched, lab_bits, data_slab, sb_row,
                      n_range, n_pings, chunk_w, zarr_pad=False):
@@ -203,7 +299,7 @@ class GriddedRunner:
 
     def _eval_patches(self, hist, data_slab, label_slab, sb_pad, keep_slab,
                       thr_slab, starts, N, grid_h, zarr_pad=False,
-                      use_meta=False):
+                      meta_slab=None, consts=None):
         """Per-patch test label chain + forward + PR histogram update for
         one column group; adds into the int32 ``hist`` in place and
         returns it.
@@ -220,11 +316,9 @@ class GriddedRunner:
         data row and its live flag (0 for the sub-batch pad), padded to
         the sub-batch total.  ``zarr_pad``: a zarr survey, with the zarr
         reader's seabed law and no border zeroing (the reference's zarr
-        eval transform has none, evaluate.py:47)."""
-        if use_meta:
-            raise NotImplementedError(
-                "meta channels are not ported yet (ROADMAP.md queue A: "
-                "infer_mode slab, static_grid and meta channels)")
+        eval transform has none, evaluate.py:47).  ``meta_slab`` (Hp, Wp,
+        Ms) and ``consts`` (Np, Mc): the metadata channels when the
+        runner has them (``_build_meta_inputs``)."""
         wh, ww = self.window
         dev = data_slab.device
         use_thr = label_slab.dtype == torch.int8
@@ -295,14 +389,18 @@ class GriddedRunner:
             # which would otherwise make them -1 negatives)
             lab = torch.where(cvb[:, None, None] > 0, lab, LABEL_IGNORE_VAL)
 
-            d = data_ops.net_db_input(data, scaled=False)
+            d = data_ops.net_db_input(data, scaled=self.use_meta)
             if not zarr_pad:
                 # memmap eval zeroes dB data at the boundary (the
                 # reference's define_data_transform_test; its zarr eval
                 # does not)
                 d = data_ops.set_data_border_value(d, lab,
                                                    channels_last=True)
-            probs = torch.softmax(self.model(d), dim=-1)
+            meta = None
+            if self.use_meta:
+                meta = self._gather_meta(meta_slab,
+                                         consts[k * B:(k + 1) * B], y0b, x0b)
+            probs = torch.softmax(self._forward(d, meta), dim=-1)
             metrics.update_pr_histogram(hist, probs[..., 1], lab)
             self.forwards += 1
         return hist
@@ -315,3 +413,91 @@ def _float_to_int32(x: torch.Tensor) -> torch.Tensor:
     there; a memmap label file of a float dtype can hold NaN."""
     x = torch.where(torch.isnan(x), 0.0, x).to(torch.float64)
     return torch.clamp(x, -2.0 ** 31, 2.0 ** 31 - 1).to(torch.int32)
+
+
+def _build_meta_inputs(runner, reader, Hp, Wp, row0_data, col0_data,
+                       centers_x):
+    """Host construction of the metadata inputs of the gridded device
+    programs (memmap-only, like the reference): the per-pixel channels as
+    an (Ms, Hp, Wp) slab in padded grid coordinates + the (N, Mc)
+    per-patch constant channels, in float64 host arithmetic cast once to
+    float32 (JAX runner.py ``_build_meta_inputs``).
+
+    The reference meta grid is offset (-1, -1) relative to the data crop
+    (``arange(center - w//2, ...)`` without the +1 shift,
+    dataset.py:306-345), hence the ``- 1`` below."""
+    if reader.data_format != "memmap":
+        raise ValueError(
+            "metadata channels are memmap-only (reference "
+            "dataset.py:245-252)")
+    mc = runner.meta_channels
+    wh = runner.window[0]
+    n_pings = reader.shape[1]
+    rows = np.arange(Hp, dtype=np.float64) + row0_data - 1
+    cols = np.arange(Wp) + col0_data - 1
+    cc = np.clip(cols, 0, n_pings - 1)
+    centers_x = np.asarray(centers_x)
+
+    consts_parts = []
+    if mc.get("portion_year"):
+        consts_parts.append(np.full(len(centers_x),
+                                    reader.portion_of_year_scalar))
+    if mc.get("portion_day"):
+        idx = np.clip(centers_x, 0, reader.portion_of_day_vector.size - 1)
+        pd = reader.portion_of_day_vector[idx]
+        consts_parts.append(np.sin(2 * np.pi * pd))
+        consts_parts.append(np.cos(2 * np.pi * pd))
+    consts = (np.stack(consts_parts, axis=1) if consts_parts
+              else np.zeros((len(centers_x), 0)))
+
+    slab_parts = []
+    if mc.get("time_diff"):
+        slab_parts.append(np.broadcast_to(
+            reader.time_vector_diff[cc][None, :], (Hp, Wp)))
+    if any(mc.get(k) for k in ("depth_rel", "depth_abs_surface",
+                               "depth_abs_seabed")):
+        sb = np.asarray(reader.get_seabed(0, n_pings)).astype(np.float64)
+        sbc = sb[cc]
+        if mc.get("depth_rel"):
+            slab_parts.append(rows[:, None] / sbc[None, :])
+        if mc.get("depth_abs_surface"):
+            slab_parts.append(np.broadcast_to(rows[:, None] / wh, (Hp, Wp)))
+        if mc.get("depth_abs_seabed"):
+            slab_parts.append((sbc[None, :] - rows[:, None]) / wh)
+    meta_slab = (np.stack(slab_parts).astype(np.float32) if slab_parts
+                 else np.zeros((0, Hp, Wp), np.float32))
+    return meta_slab, consts.astype(np.float32)
+
+
+def _build_meta_slab_full(runner, reader, Hp, Wp, row0_data, col0_data):
+    """(Hp, Wp, M) metadata channels of the fully-convolutional slab
+    forward (``infer_mode: slab``), in the patch path's channel order
+    (reference dataset.py:288-351): portion_year, portion_day sin/cos,
+    time_diff, depth_rel, depth_abs_surface, depth_abs_seabed (JAX
+    runner.py ``_build_meta_slab_full``).
+
+    The per-pixel families use the patch law of ``_build_meta_inputs``
+    exactly.  The per-patch-constant ones differ by construction: the
+    slab forward has no patches, so each column carries its own ping's
+    portion_day instead of the owning patch center's (portion_year is a
+    survey scalar either way; DIVERGENCES.md)."""
+    mc = runner.meta_channels
+    per_pixel, _ = _build_meta_inputs(runner, reader, Hp, Wp, row0_data,
+                                      col0_data, np.zeros(0, np.int64))
+    # the per-pixel families' clipped column mapping, -1 meta-grid offset
+    # included, so all channels stay aligned
+    cols = np.arange(Wp) + col0_data - 1
+    cc = np.clip(cols, 0, reader.shape[1] - 1)
+    parts = []
+    if mc.get("portion_year"):
+        parts.append(np.full((Hp, Wp), reader.portion_of_year_scalar,
+                             np.float32))
+    if mc.get("portion_day"):
+        pd = reader.portion_of_day_vector[cc]
+        for f in (np.sin, np.cos):
+            parts.append(np.broadcast_to(
+                f(2 * np.pi * pd)[None, :].astype(np.float32), (Hp, Wp)))
+    consts_full = (np.stack(parts) if parts
+                   else np.zeros((0, Hp, Wp), np.float32))
+    full = np.concatenate([consts_full, per_pixel], axis=0)
+    return np.ascontiguousarray(full.transpose(1, 2, 0)).astype(np.float32)

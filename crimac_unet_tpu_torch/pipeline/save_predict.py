@@ -20,7 +20,8 @@ from ..data.partition import make_partition
 from ..models.unet import build_unet
 from ..models.weights import load_checkpoint
 from ..utils.general import fix_seeds
-from .predict import save_reader_predictions_memm, save_survey_predictions_zarr
+from .predict import (save_reader_predictions_memm,
+                      save_survey_predictions_zarr, survey_static_grid)
 from .runner import GriddedRunner
 
 
@@ -40,6 +41,8 @@ def run_save_predictions(config, runner, predictions_dir, progress=False,
         readers = data_obj.get_survey_readers(survey)
         print(f"Saving predictions for survey {survey}, "
               f"{len(readers)} data reader(s)")
+        fixed_R, fixed_C = survey_static_grid(runner, readers,
+                                              config["preload_n_pings"])
         for reader in readers:
             if config["data_mode"] == "memm":
                 save_reader_predictions_memm(
@@ -47,7 +50,7 @@ def run_save_predictions(config, runner, predictions_dir, progress=False,
                     os.path.join(predictions_dir, reader.name + "_pred.npy"),
                     preload_n_pings=config["preload_n_pings"],
                     resume_writing=config["resume_writing"],
-                    progress=progress)
+                    progress=progress, fixed_R=fixed_R, fixed_C=fixed_C)
             else:
                 save_survey_predictions_zarr(
                     runner, reader,
@@ -56,7 +59,8 @@ def run_save_predictions(config, runner, predictions_dir, progress=False,
                     resume_writing=config["resume_writing"],
                     model_name=runner_model_name(config),
                     progress=progress,
-                    save_labels=should_save_labels(config, reader))
+                    save_labels=should_save_labels(config, reader),
+                    fixed_R=fixed_R, fixed_C=fixed_C)
 
 
 def should_save_labels(config, reader) -> bool:

@@ -213,15 +213,25 @@ def test_eval_cli_csv_matches_jax_writer(surveys, variables, tmp_path,
 
 
 def test_eval_rejects_unported_paths(surveys, variables):
+    """The static grid (fixed_R) is ported and histogram-exact; metadata
+    evaluation of a zarr reader is rejected, as the reference's zarr crop
+    path carries no metadata."""
+    from types import SimpleNamespace
+
+    from crimac_unet_tpu_torch.pipeline.runner import _build_meta_inputs
     _, v = variables
-    runner = GriddedRunner(build_unet(CFG), flax_to_torch_state_dict(v), CFG,
-                           device="cpu")
+    runner = GriddedRunner(build_unet(CFG), flax_to_torch_state_dict(v),
+                           dict(CFG, transfer_dtype="float32"), device="cpu")
     reader = Echogram(next(surveys["port"].iterdir()))
-    with pytest.raises(NotImplementedError, match="static_grid"):
-        evaluate_reader(runner, reader, metrics.new_histogram(), fixed_R=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runner._eval_patches(None, None, None, None, None, None, None, 0, 0,
-                             use_meta=True)
+    own = evaluate_reader(runner, reader, metrics.new_histogram(),
+                          chunk_cols=3)
+    padded = evaluate_reader(runner, reader, metrics.new_histogram(),
+                             chunk_cols=3, fixed_R=6)
+    np.testing.assert_array_equal(padded, own)
+    zarr = SimpleNamespace(data_format="zarr")
+    with pytest.raises(ValueError, match="memmap-only"):
+        _build_meta_inputs(SimpleNamespace(meta_channels={}, window=(64, 64)),
+                           zarr, 64, 64, -8, -8, np.zeros(1))
 
 
 def test_save_pr_plot_names_matplotlib_when_missing(monkeypatch, tmp_path):

@@ -228,3 +228,49 @@ def test_closing_kernel_word_edges(cuda):
         clip[0, 3:37, 2:edge] = True
         clip[1, :, edge:] = True
         assert _closing_matches_plain(mask.to(cuda), clip.to(cuda)), edge
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16,
+                                   torch.float32])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_gather_db_kernel_slab_window_matches_plain(cuda, dtype, scaled):
+    """Slab mode's front end: one window of the whole grid padded to the
+    pooling alignment (N = 1, start (0, 0), 1120 x 1120 over a 1096-row
+    shipped slab of 1080 columns): rows past the slab read as zeros and
+    the columns past Wp and the rectangle's outside come out 0.0."""
+    rng = np.random.RandomState(31)
+    Hs, Hp, Wp, H16, W16 = 1096, 1104, 1080, 1120, 1120
+    raw = rng.lognormal(np.log(1e-6), 2.0, (Hs, Wp, CF)).astype(np.float32)
+    raw[5:9, 10:200, 0] = np.nan
+    raw[500:502, :, 2] = np.inf
+    raw[600:602, 3:400, 1] = -np.inf
+    slab = torch.from_numpy(_quantize_db_u8(raw)) if dtype == torch.uint8 \
+        else torch.from_numpy(raw).to(dtype)
+    slab = slab.to(cuda)
+    origin = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = cuda_lib.launches["gather_db"]
+    for border in ((20, 1040, 20, 1060), (0, Hp, 0, Wp)):
+        for out_dtype in (torch.bfloat16, torch.float32):
+            args = (slab, origin, origin, (H16, W16), border, scaled,
+                    out_dtype)
+            got = gather_db(*args)
+            want = gather_db_reference(*args)
+            torch.cuda.synchronize()
+            _assert_within_one_ulp(got.cpu(), want.cpu())
+            assert not got[0, Hp:].any() and not got[0, :, Wp:].any()
+    assert cuda_lib.launches["gather_db"] == before + 4
+
+
+@pytest.mark.gpu
+def test_relu_pool_skip_kernel_slab_geometry_bit_equal_plain(cuda):
+    """K3 at slab mode's level-0 activation, (1, 1120, 1120, 64) bf16."""
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn((1, 1120, 1120, 64), generator=g) * 2.0
+    x.view(-1)[:7] = torch.tensor([float("nan")] * 3 + [float("inf")] * 2
+                                  + [float("-inf"), -0.0])
+    x = x.to(cuda, torch.bfloat16)
+    before = cuda_lib.launches["relu_pool_skip"]
+    for got, want in zip(relu_pool_skip(x), relu_pool_skip_reference(x)):
+        _assert_equal_nan(got, want)
+    assert cuda_lib.launches["relu_pool_skip"] == before + 1

@@ -53,7 +53,9 @@ def test_runner_on_cpu_leaves_jax_out_of_sys_modules():
     code = """
 import sys
 from crimac_unet_tpu_torch.models.unet import build_unet
-from crimac_unet_tpu_torch.pipeline import dockerscript, evaluate, save_predict
+from crimac_unet_tpu_torch.pipeline import (dockerscript, evaluate,
+                                            save_predict, school_eval)
+from crimac_unet_tpu_torch.data import meta_channels
 from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
 from crimac_unet_tpu_torch.data import zarr_reader, preprocess, fixtures
 cfg = {"patch_size": [64, 64], "patch_overlap": 8, "depth": 2,
@@ -147,3 +149,38 @@ def test_eval_cli_without_device_raises_without_cuda(tmp_path, monkeypatch):
               str(tmp_path / "m.pt"), "--save_path_metrics",
               str(tmp_path / "metrics"), "--save_path_plot",
               str(tmp_path / "plots")])
+
+
+def test_school_eval_cli_without_device_raises_without_cuda(tmp_path,
+                                                            monkeypatch):
+    """The live school-eval CLI runs on CUDA: without --device and without
+    a card it raises; from written predictions it needs no device."""
+    from crimac_unet_tpu_torch.data.fixtures import make_survey_dir
+    from crimac_unet_tpu_torch.models.unet import UNet
+    from crimac_unet_tpu_torch.pipeline.school_eval import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    d = make_survey_dir(tmp_path / "memm", year=2017, n_echograms=1, H=40,
+                        W=60, seed=1)[0]
+    torch.save(UNet(depth=2, start_filts=4).state_dict(), tmp_path / "m.pt")
+    (tmp_path / "setpyenv.json").write_text(
+        '{"path_to_echograms": "%s"}' % (tmp_path / "memm"))
+    monkeypatch.setenv("CRIMAC_SETPYENV", str(tmp_path / "setpyenv.json"))
+    base = ("depth: 2\nstart_filts: 4\ncompute_dtype: float32\n"
+            "patch_size: [32, 32]\npatch_overlap: 4\n"
+            "partition_predict: selected surveys\n"
+            "evaluation_surveys: [2017]\n")
+    (tmp_path / "live.yaml").write_text(base)
+    args = ["--checkpoint_path", str(tmp_path / "m.pt"),
+            "--save_path_metrics", str(tmp_path / "metrics"),
+            "--save_path_plot", str(tmp_path / "plots")]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--yaml_path", str(tmp_path / "live.yaml")] + args)
+    (tmp_path / "preds").mkdir()
+    import numpy as np
+    np.save(tmp_path / "preds" / (os.path.basename(d) + "_pred.npy"),
+            np.zeros((2, 40, 60), np.float16))
+    (tmp_path / "stored.yaml").write_text(
+        base + f"school_from_predictions: {tmp_path / 'preds'}\n")
+    main(["--yaml_path", str(tmp_path / "stored.yaml")] + args)
+    assert (tmp_path / "metrics" / "stored" / tmp_path.name /
+            "2017_school_eval.csv").is_file()

@@ -138,7 +138,8 @@ def test_seeded_init_and_build():
         assert ka == kb and torch.equal(ta, tb)
     with pytest.raises(ValueError, match="compute_dtype"):
         build_unet(dict(cfg, compute_dtype="float16"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # late inject needs metadata channels to feed its MLP
+    with pytest.raises(ValueError, match="late_meta_inject"):
         build_unet(dict(cfg, late_meta_inject=True))
     with pytest.raises(NotImplementedError, match="eval"):
         a.train()(torch.zeros(1, 16, 16, 4))

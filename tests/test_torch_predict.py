@@ -153,10 +153,15 @@ def test_cli_matches_jax_cli(surveys, variables, tmp_path, monkeypatch):
 
 
 def test_runner_rejects_unported_modes():
+    """Unknown modes and malformed metadata flags raise; slab mode, the
+    static grid and metadata channels are ported (tests/
+    test_torch_serving.py, tests/test_torch_meta.py)."""
     sd = build_unet(CFG).state_dict()
-    for extra in ({"infer_mode": "slab"}, {"static_grid": True},
-                  {"meta_channels": {"portion_year": True}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for extra, match in (({"infer_mode": "window"}, "infer_mode"),
+                         ({"meta_channels": {"portion_year": True}},
+                          "meta_channels keys"),
+                         ({"output_dtype": "float32"}, "output_dtype")):
+        with pytest.raises(ValueError, match=match):
             GriddedRunner(build_unet(CFG), sd, dict(CFG, **extra),
                           device="cpu")
     with pytest.raises(ValueError, match="transfer_dtype"):
