@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase, on CUDA device 0
     python3 chip_smoke.py --phases 1,2     # a subset (debugging)
+    python3 chip_smoke.py --phases 1,12 --recipe baseline   # + a recipe
 
 Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit; imports
 nothing of JAX or of the JAX package.  Phases, in order; any failure
@@ -24,7 +25,8 @@ raises and the script exits nonzero without its result line:
    K3 at slab mode's geometry: K1 as one (H16, W16) window over the
    first chunk's whole grid (N = 1; uint8, bfloat16 and float32 slabs,
    scaled and not, shipped short of the grid in rows and columns), K3
-   at (1, H16, W16, 64);
+   at (1, H16, W16, 64); K4 also at the train step's mask shapes
+   (4, 256, 256) and (16, 256, 256);
 3. small agreement runs on the CPU (plain versions) and on the card
    (kernels), depth 3 / start_filts 8, float32, TF32 off: one synthetic
    echogram through the whole predict path (BatchNorm folded and
@@ -36,7 +38,10 @@ raises and the script exits nonzero without its result line:
    is built, and evaluation in the three modes); then slab mode (memm;
    zarr with uint8 transfer), the static grid (patch and slab) and the
    metadata channels (early and late inject, patch and slab prediction,
-   evaluation);
+   evaluation); then one and two float32 train steps (augmentation off)
+   from the same weights and crops: labels after the train chain
+   identical, loss and updates within stated tolerances, and the pooled
+   step equal to the host-crop step;
 4. the prediction main path at full width: ``run_save_predictions`` on a
    seeded 1000 x 4000 x 4 memmap echogram with the flagship U-Net (depth
    5, start_filts 64, seeded random weights, bfloat16, patch 256 /
@@ -72,12 +77,25 @@ raises and the script exits nonzero without its result line:
     late-inject prediction, each a warm-up and a timed run;
 11. school-detection evaluation, live on the memm and zarr surveys, then
     from the stores phases 4 and 6 wrote: equal metrics;
+12. training at full width through ``run_training``: the flagship U-Net
+    (bfloat16, batch 4, patch 256) on the reference recipe's fixture
+    (scripts/r3_tpu_session.py:51-78; 2017 3 x 700 x 1400, 2016 2 x 700
+    x 1200), 400 iterations with validation every 200 (50 batches), lr
+    halved every 100, a checkpoint every 200, both device pools on: the
+    loss finite and falling, K4 once per train and validation step, K2
+    once per validation step, K3 never, best/last msgpack checkpoints
+    and sidecars written; resume from the step-200 checkpoint (step,
+    momentum buffers, weights); the step time by CUDA events over 50
+    steps, the profiler over 20; the trained best.msgpack served and
+    evaluated (BatchNorm folded) on the 2016 survey;
 
 and then one JSON line naming every kernel with its phase-2 numbers
 (slab geometry included), its launches on the main path that runs it
 (K1-K3 phase 4, K4 phase 5) and its launches on every path
-(``launches_by_path``), then the last line ``{"ok": true, "device":
-{...}}``.
+(``launches_by_path``; ``tr`` is phase 12's training run), then the last
+line ``{"ok": true, "device": {...}}``.  ``--recipe baseline|fast``
+trains the full reference recipe or the fast preset on the phase-12
+fixture after the selected phases and prints its best F1 and wall.
 
 Every path is driven with the launch counters set to 0 just before it
 and read just after.
@@ -620,6 +638,26 @@ def phase_closing(torch, card, reader, cfg):
           f"{host_ms(lambda: binary_closing(m, c)):.4f} ms a call), plain "
           f"{r['plain_ms']:.4f} ms, "
           f"bound {b:.4f} ms ({by}) [{card}]")
+    # the train step's mask shapes: batch 4 (the reference recipe) and 16
+    # (the fast preset), patch 256
+    for tb in (4, 16):
+        m = (torch.rand((tb, 256, 256), generator=g) < 0.4).to(dev)
+        c = _box_clips(torch, tb, 256, 256).to(dev)
+        check(torch.equal(binary_closing(m, c),
+                          binary_closing_reference(m, c)),
+              f"binary_closing != plain at ({tb}, 256, 256)")
+        torch.cuda.synchronize()
+        bt, byt = bound_ms(3 * m.numel(), 133 * tb * 256 * 8,
+                           INT32_OPS_PER_S)
+        rt = dict(shape=[tb, 256, 256], max_abs_err=0.0,
+                  ms=cuda_ms(torch, lambda: binary_closing(m, c)),
+                  plain_ms=cuda_ms(torch,
+                                   lambda: binary_closing_reference(m, c)),
+                  bound_ms=bt, bound_by=byt, library_ms=None)
+        r[f"train_batch_{tb}"] = rt
+        print(f"binary_closing train shape ({tb}, 256, 256): bit-equal to "
+              f"plain; kernel {rt['ms']:.4f} ms, plain {rt['plain_ms']:.4f} "
+              f"ms, bound {bt:.4f} ms ({byt}) [{card}]")
     return r
 
 
@@ -680,9 +718,130 @@ def phase_agreement(torch, tmp):
                               zreader, f"zarr, {transfer} transfer")
         eval_agreement(torch, dict(cfg, fold_bn=True), sd, zreader)
         new_paths_agreement(torch, cfg, sd, reader, zreader)
+        train_agreement(torch, reader)
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+_BIAS_BEFORE_BN = (".main.0.bias", ".main.3.bias", ".conv1.bias",
+                   ".conv2.bias")
+
+
+def train_agreement(torch, reader):
+    """One and two float32 train steps on the CPU and on the card (depth
+    3, start_filts 8, patch 64, TF32 off, augmentation off) from the same
+    weights and crops of the phase-3 echogram: the labels after the train
+    chain identical (K4 against the plain closing), the loss within 1e-4
+    relative, each update within 5e-2 relative in max-norm plus one ulp of
+    its parameter (cuDNN and the CPU sum in other orders; a conv bias
+    ahead of a BatchNorm has zero gradient and is skipped).  On the card
+    the pooled crops equal the host crops, and with deterministic cuDNN
+    the pooled step equals the host-crop step bit for bit."""
+    import numpy as np
+    from crimac_unet_tpu_torch.data.device_pool import (DeviceSamplePool,
+                                                        gather_crops)
+    from crimac_unet_tpu_torch.models.unet import build_unet, init_train_
+    from crimac_unet_tpu_torch.ops import augment
+    from crimac_unet_tpu_torch.pipeline import engine
+
+    cfg = {"patch_size": [64, 64], "depth": 3, "start_filts": 8,
+           "frequencies": [18, 38, 120, 200], "lr": 0.005,
+           "lr_reduction": 0.5, "lr_step": 1000, "momentum": 0.95,
+           "compute_dtype": "float32"}
+    win, freqs = (64, 64), cfg["frequencies"]
+    rng = np.random.RandomState(SEED)
+    H, W = reader.shape
+    batches = []
+    for _ in range(2):
+        centers = []
+        for j in range(4):     # two centers on schools, two anywhere
+            if j < 2 and reader.objects:
+                o = reader.objects[rng.randint(len(reader.objects))]
+                centers.append(tuple(int(v) for v in
+                                     o["indexes"][rng.randint(
+                                         o["n_pixels"])]))
+            else:
+                centers.append((int(rng.randint(H)), int(rng.randint(W))))
+        d = np.stack([reader.crop_data(c, win, freqs) for c in centers])
+        lab = np.stack([reader.crop_labels(c, win) for c in centers])
+        batches.append((centers, torch.from_numpy(d),
+                        torch.from_numpy(lab.astype(np.int32))))
+
+    def fresh(dev):
+        net = init_train_(build_unet(cfg), torch.Generator().manual_seed(
+            SEED)).to(dev)
+        return net, engine.init_train_state(net, cfg)
+
+    def params(net):
+        return {n: q.detach().cpu().clone() for n, q in
+                net.named_parameters()}
+
+    real_augment = augment.augment_train
+    augment.augment_train = lambda gen, d, lab: (d, lab)
+    try:
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            net, state = fresh(dev)
+            step = engine.make_train_step(cfg)
+            chains, losses, ps = [], [], [params(net)]
+            for _, d, lab in batches:
+                chains.append(engine._train_labels(d.to(dev), lab.to(dev),
+                                                   -1).cpu())
+                losses.append(float(step(state, d.to(dev), lab.to(dev),
+                                         None)))
+                ps.append(params(net))
+            runs[dev] = (chains, losses, ps)
+        worst = 0.0
+        for k in range(2):
+            (c0, l0, p0), (c1, l1, p1) = (
+                (r[0][k], r[1][k], r[2]) for r in (runs["cpu"],
+                                                   runs["cuda"]))
+            check(torch.equal(c0, c1),
+                  f"train step {k + 1}: labels after the train chain differ "
+                  f"between CPU and card")
+            check(abs(l1 - l0) <= 1e-4 * abs(l0),
+                  f"train step {k + 1}: loss {l1} on the card, {l0} on CPU")
+            for name in p0[0]:
+                if name.endswith(_BIAS_BEFORE_BN):
+                    continue
+                up = p1[k + 1][name] - p1[k][name]
+                ref = p0[k + 1][name] - p0[k][name]
+                ulp = float(p0[k][name].abs().max()) * 2 ** -23
+                err = float((up - ref).abs().max())
+                scale = float(ref.abs().max())
+                check(err <= 5e-2 * scale + ulp,
+                      f"train step {k + 1}: {name} update off by {err} "
+                      f"(max-norm {scale})")
+                worst = max(worst, err / max(scale, 1e-30))
+        print(f"train steps 1-2, CPU vs card (float32, TF32 off): labels "
+              f"identical, losses {runs['cpu'][1]} vs {runs['cuda'][1]}, "
+              f"worst relative update difference {worst:.2e}")
+
+        pool = DeviceSamplePool([reader], freqs, win, "cuda")
+        centers, d, lab = batches[0]
+        idx, starts = (torch.from_numpy(a).cuda() for a in
+                       pool.prepare_batch([(reader, c) for c in centers]))
+        gd, gl = gather_crops(pool.data, pool.labels, idx, starts, win)
+        check(torch.equal(gd.cpu(), d) and torch.equal(gl.cpu(), lab),
+              "pooled crops differ from the host crops")
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            (n1, s1), (n2, s2) = fresh("cuda"), fresh("cuda")
+            la = engine.make_train_step(cfg)(s1, d.cuda(), lab.cuda(), None)
+            lb = engine.make_train_step_pooled(cfg)(
+                s2, pool.data, pool.labels, idx, starts, None)
+            check(torch.equal(la, lb) and all(
+                torch.equal(a, b) for a, b in zip(n1.parameters(),
+                                                  n2.parameters())),
+                  "the pooled train step differs from the host-crop step")
+        finally:
+            torch.backends.cudnn.deterministic = det
+        print("pooled train step on the card: crops and step equal to the "
+              "host-crop step's")
+    finally:
+        augment.augment_train = real_augment
 
 
 def new_paths_agreement(torch, cfg, sd, reader, zreader):
@@ -1458,11 +1617,321 @@ def phase_school(torch, cuda_lib, tmp, cfg, cases, card):
     return paths, rates
 
 
+# -------------------------------------------------------------- phase 12
+def train_fixture(tmp):
+    """The reference recipe's fixture (scripts/r3_tpu_session.py:51-60)
+    built with the port's make_survey_dir: 2017 three 700 x 1400
+    echograms (seed 41), 2016 two 700 x 1200 (seed 42), 6 schools each."""
+    from crimac_unet_tpu_torch.data.fixtures import make_survey_dir
+    root = tmp / "train_memm"
+    if not root.is_dir():
+        t0 = time.perf_counter()
+        make_survey_dir(root, year=2017, n_echograms=3, H=700, W=1400,
+                        seed=41, n_schools=6)
+        make_survey_dir(root, year=2016, n_echograms=2, H=700, W=1200,
+                        seed=42, n_schools=6)
+        print(f"train fixture written in {time.perf_counter() - t0:.1f} s")
+    return root
+
+
+def recipe_config(root, **kw):
+    """The reference recipe's settings (scripts/r3_tpu_session.py:63-78):
+    the flagship U-Net, batch 4, lr 0.005 halved every 1000 steps, 15000
+    iterations, validation every 2500 over 1000 batches; device pool
+    auto, on the card."""
+    from crimac_unet_tpu_torch.config import parse_config_options
+    return parse_config_options(dict({
+        "frequencies": [18, 38, 120, 200], "data_mode": "memm",
+        "path_to_echograms": str(root), "patch_size": [256, 256],
+        "loss_type": "CE", "batch_size": 4, "lr": 0.005,
+        "lr_reduction": 0.5, "momentum": 0.95, "iterations": 15000,
+        "test_iter": 1000, "log_step": 2500, "lr_step": 1000,
+        "num_workers": 2, "partition_train": "selected surveys",
+        "train_surveys": [2017], "validation_surveys": [2016],
+        "partition_predict": "all surveys", "evaluation_surveys": [],
+        "save_prediction_surveys": [], "eval_mode": "all",
+        "patch_overlap": 20, "random_seed": 10, "depth": 5,
+        "start_filts": 64, "train_dtype": "bfloat16",
+        "use_device_pool": "auto", "device": "cuda"}, **kw))
+
+
+class _Scalars:
+    """A TensorBoard-style logger that keeps the scalars."""
+
+    def __init__(self):
+        self.rows = []
+
+    def add_scalar(self, tag, value, global_step):
+        self.rows.append((tag, float(value), int(global_step)))
+
+    def values(self, tag):
+        return [v for t, v, _ in self.rows if t == tag]
+
+
+def _spy(obj, name, before=None, after=None):
+    """Wrap ``obj.name``; returns a restore callable."""
+    real = getattr(obj, name)
+
+    def spy(*args, **kwargs):
+        if before is not None:
+            before(*args, **kwargs)
+        out = real(*args, **kwargs)
+        if after is not None:
+            after(out, *args, **kwargs)
+        return out
+    setattr(obj, name, spy)
+    return lambda: setattr(obj, name, real)
+
+
+def _pooled_batches(torch, cfg, pool, n):
+    """``n`` pooled train batches (device tensors) drawn as the training
+    loop draws them."""
+    from crimac_unet_tpu_torch.data.dataset import RandomPatchDataset
+    from crimac_unet_tpu_torch.data.partition import make_partition
+    samplers, _, probs = make_partition(cfg).get_samplers_train(
+        pool.readers, pool.readers)
+    ds = RandomPatchDataset(samplers, cfg["patch_size"],
+                            sorted(cfg["frequencies"]), probs,
+                            seed=cfg["random_seed"]).use_pool(pool)
+    return [{k: torch.from_numpy(v).cuda() for k, v in
+             ds.batch(cfg["batch_size"]).items()} for _ in range(n)]
+
+
+def phase_train(torch, cuda_lib, tmp, card):
+    """Training at full width through ``run_training``: the flagship U-Net
+    (bfloat16, batch 4, patch 256) on the recipe fixture, 400 iterations,
+    validation every 200 over 50 batches, lr halved every 100 steps, a
+    periodic checkpoint every 200, both device pools on.  Then: resume
+    from the step-200 checkpoint, the step time by CUDA events, the
+    profiler's device share, and the trained best.msgpack served and
+    evaluated (BatchNorm folded) on the 2016 survey."""
+    import shutil
+    import warnings
+
+    import numpy as np
+    from crimac_unet_tpu_torch.data.partition import make_partition
+    from crimac_unet_tpu_torch.models.unet import build_unet
+    from crimac_unet_tpu_torch.models.weights import load_checkpoint
+    from crimac_unet_tpu_torch.pipeline import engine
+    from crimac_unet_tpu_torch.pipeline.evaluate import evaluate_survey
+    from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
+    from crimac_unet_tpu_torch.pipeline.save_predict import \
+        run_save_predictions
+    from crimac_unet_tpu_torch.pipeline.segpipe import SegPipeUNet
+    from crimac_unet_tpu_torch.pipeline.train import run_training
+
+    root = train_fixture(tmp)
+    cfg = recipe_config(root, iterations=400, log_step=200, test_iter=50,
+                        lr_step=100, checkpoint_every=200)
+    ck = tmp / "train_ck"
+    snap = {}
+    val_s = []
+
+    def snapshot(out, path, state, extras=None):
+        if Path(path).name == "last.msgpack" and state.step == 200:
+            shutil.copy(path, tmp / "last_step200.msgpack")
+            shutil.copy(str(path) + ".json",
+                        tmp / "last_step200.msgpack.json")
+            snap["momentum"] = {k: v.detach().cpu().clone() for k, v in
+                                engine.momentum_buffers(state).items()}
+            snap["weights"] = {k: v.detach().cpu().clone() for k, v in
+                               state.model.state_dict().items()}
+
+    def val_start(*args, **kwargs):
+        torch.cuda.synchronize()
+        val_s.append(-time.perf_counter())
+
+    def val_end(out, *args, **kwargs):
+        torch.cuda.synchronize()
+        val_s[-1] += time.perf_counter()
+
+    restores = [_spy(engine, "save_checkpoint", after=snapshot),
+                _spy(SegPipeUNet, "validate_model_training",
+                     before=val_start, after=val_end)]
+    log = _Scalars()
+    try:
+        cuda_lib.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sp = run_training(cfg, ck, logger=log, progress=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(cuda_lib.launches)
+    finally:
+        for r in restores:
+            r()
+    n_train, n_val = sp.state.step, 2 * cfg["test_iter"]
+    losses = np.asarray(log.values("train/loss"))
+    check(n_train == 400 and len(losses) == 400,
+          f"trained {n_train} steps, {len(losses)} losses logged")
+    check(np.isfinite(losses).all(), "a training loss is not finite")
+    first, last = losses[:100].mean(), losses[-100:].mean()
+    check(last < first, f"the loss did not fall: first 100 steps {first}, "
+                        f"last 100 {last}")
+    check(sp.pool is not None and sp.pool_val is not None,
+          "the device pools are not both on")
+    check(counts["binary_closing"] == n_train + n_val
+          and counts["maxpool2x2"] == n_val
+          and counts["relu_pool_skip"] == 0 and counts["gather_db"] == 0,
+          f"training launches {counts} for {n_train} train and {n_val} "
+          f"validation steps")
+    for name in ("best.msgpack", "last.msgpack"):
+        check((ck / name).is_file() and (ck / (name + ".json")).is_file(),
+              f"{name} or its sidecar was not written")
+    f1s = log.values("test/F1_score")
+    print(f"training, 400 steps at full width: launches {counts}, wall "
+          f"{wall:.1f} s ({4 * 400 / wall:.1f} crops/s with validation), "
+          f"loss {first:.4f} (steps 1-100) -> {last:.4f} (301-400), "
+          f"validation F1 {f1s}, validation passes {val_s} s, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"[{card}]")
+
+    # resume from the step-200 checkpoint
+    check("momentum" in snap, "no step-200 checkpoint was written")
+    rs = SegPipeUNet(cfg)
+    rs.resume_from(tmp / "last_step200.msgpack")
+    got = engine.momentum_buffers(rs.state)
+    check(rs.state.step == 200 and all(
+        torch.equal(got[k].cpu(), v) for k, v in snap["momentum"].items())
+        and all(torch.equal(rs.model.state_dict()[k].cpu(), v)
+                for k, v in snap["weights"].items()),
+        "resume from the step-200 checkpoint did not restore the step, "
+        "the momentum buffers and the weights")
+    print(f"resumed from the step-200 last.msgpack: step {rs.state.step}, "
+          f"{len(got)} momentum buffers and the weights equal, best F1 "
+          f"{rs.best_F1_val}")
+    del rs
+
+    # the step alone: CUDA events over 50 pooled steps, no host sync
+    batches = _pooled_batches(torch, cfg, sp.pool, 75)
+    for b in batches[:5]:
+        sp.train_step(b)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            start.record()
+            for b in batches[5:55]:
+                sp.train_step(b)
+            end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / 50
+    print(f"train step (pooled, {cfg['train_dtype']}, batch "
+          f"{cfg['batch_size']}): {step_ms:.3f} ms a step by "
+          f"CUDA events over 50 steps = "
+          f"{4 * 1000 / step_ms:.1f} crops/s; host syncs inside: "
+          f"{len(syncs)} [{card}]")
+
+    def twenty():
+        t = time.perf_counter()
+        for b in batches[55:75]:
+            sp.train_step(b)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+    profile_run(torch, twenty, card)
+
+    # serve and evaluate the trained best.msgpack (BatchNorm folded)
+    scfg = dict(cfg, save_prediction_surveys=[2016], compute_dtype="bfloat16",
+                fwd_batch=32, fold_bn=True, infer_mode="patch",
+                transfer_dtype="bfloat16", output_dtype="float16",
+                preload_n_pings=1000, partition_predict="selected surveys",
+                evaluation_surveys=[2016], static_grid=False,
+                pipeline_depth=3)
+    runner = GriddedRunner(build_unet(scfg),
+                           load_checkpoint(ck / "best.msgpack"), scfg)
+    out = tmp / "train_preds"
+    out.mkdir()
+    cuda_lib.reset_launches()
+    f0 = runner.forwards
+    run_save_predictions(scfg, runner, str(out), path_to_echograms=str(root))
+    torch.cuda.synchronize()
+    pc, fwd = dict(cuda_lib.launches), runner.forwards - f0
+    preds = sorted(out.glob("*_pred.npy"))
+    check(len(preds) == 2 and fwd > 0 and pc["gather_db"] == fwd
+          and pc["relu_pool_skip"] == fwd,
+          f"serving the trained model: {len(preds)} outputs, launches {pc} "
+          f"for {fwd} forwards")
+    for pth in preds:
+        pred = np.load(pth)
+        check(np.isfinite(pred).all() and pred.min() >= 0
+              and pred.max() <= 1, f"{pth.name}: not in [0, 1]")
+    part = make_partition(scfg)
+    cuda_lib.reset_launches()
+    f0 = runner.forwards
+    curve = evaluate_survey(runner, part.get_survey_readers(2016), "all")
+    torch.cuda.synchronize()
+    ec, efwd = dict(cuda_lib.launches), runner.forwards - f0
+    f1 = float(curve["F1"].max())
+    check(efwd > 0 and ec["binary_closing"] == efwd
+          and ec["relu_pool_skip"] == efwd and 0.0 <= f1 <= 1.0,
+          f"evaluating the trained model: launches {ec} for {efwd} "
+          f"sub-batches, F1 {f1}")
+    print(f"trained best.msgpack (best validation F1 {sp.best_F1_val:.4f}) "
+          f"served on the 2016 survey: {fwd} forwards, launches {pc}; "
+          f"evaluate_survey mode all: max F1 {f1:.4f}, launches {ec} "
+          f"[{card}]")
+    return counts, {"train crops/s (pooled step)": 4 * 1000 / step_ms}
+
+
+def run_recipe(torch, tmp, name, dtype, card):
+    """The full reference recipe or the fast preset
+    (crimac_unet_tpu/configs/config_fast_train.yaml: 3750 x 16, lr 0.01,
+    lr_step 250) on the recipe fixture through run_training."""
+    from crimac_unet_tpu_torch.pipeline.segpipe import SegPipeUNet
+    from crimac_unet_tpu_torch.pipeline.train import run_training
+    root = train_fixture(tmp)
+    kw = {"train_dtype": dtype}
+    if name == "fast":
+        kw.update(batch_size=16, lr=0.01, lr_step=250, iterations=3750,
+                  test_iter=250, log_step=625)
+    cfg = recipe_config(root, **kw)
+    val_s = []
+
+    def val_start(*args, **kwargs):
+        torch.cuda.synchronize()
+        val_s.append(-time.perf_counter())
+
+    def val_end(out, *args, **kwargs):
+        torch.cuda.synchronize()
+        val_s[-1] += time.perf_counter()
+    restore = _spy(SegPipeUNet, "validate_model_training",
+                   before=val_start, after=val_end)
+    log = _Scalars()
+    try:
+        t0 = time.perf_counter()
+        sp = run_training(cfg, tmp / f"recipe_{name}_{dtype}", logger=log,
+                          progress=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    train_s = wall - sum(val_s)
+    n = sp.state.step
+    print(f"recipe {name} ({dtype}): best F1 {sp.best_F1_val:.4f}, "
+          f"validation F1 {log.values('test/F1_score')}, wall "
+          f"{wall / 60:.2f} min, {n} steps x batch {cfg['batch_size']}, "
+          f"{train_s / n * 1e3:.2f} ms a step outside validation, "
+          f"validation {sum(val_s):.1f} s in {len(val_s)} passes [{card}]")
+    return sp.best_F1_val, wall
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
-                    help="comma-separated subset of phases 1-11 (11 needs "
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+                    help="comma-separated subset of phases 1-12 (11 needs "
                          "4 and 6)")
+    ap.add_argument("--recipe", choices=("baseline", "fast"),
+                    help="also train the full reference recipe (15000 x "
+                         "batch 4) or the fast preset (3750 x 16) on the "
+                         "recipe fixture and print the best F1 and wall")
+    ap.add_argument("--recipe-dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"),
+                    help="train_dtype of --recipe")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if 11 in phases and not phases >= {4, 6}:
@@ -1522,6 +1991,11 @@ def main(argv=None) -> int:
                  zarr_store)], card)
             by_path.update(paths)
             rates.update(r)
+        if 12 in phases:
+            by_path["tr"], r = phase_train(torch, cuda_lib, tmp, card)
+            rates.update(r)
+        if args.recipe:
+            run_recipe(torch, tmp, args.recipe, args.recipe_dtype, card)
     if phases >= {2, 4, 5}:
         for name in KERNELS:
             check(launches.get(name, 0) > 0,
@@ -1532,8 +2006,8 @@ def main(argv=None) -> int:
                  launches_by_path={p: c[name] for p, c in by_path.items()})
             for name in KERNELS]}))
         print("main paths: " + ", ".join(
-            f"{k} {v:.1f} pings/s" for k, v in rates.items())
-            + f" [{card}]")
+            f"{k} {v:.1f}" + ("" if "/s" in k else " pings/s")
+            for k, v in rates.items()) + f" [{card}]")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

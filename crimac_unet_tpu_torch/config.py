@@ -158,9 +158,8 @@ def get_argparse_parser(mode: str = "train") -> argparse.ArgumentParser:
                                 dest="save_predictions_path",
                                 type=lambda p: Path(p).resolve(),
                                 required=True)
-        # torch device of the port's entry points ('cuda' when absent)
-        parser.add_argument("--device", dest="device", required=False,
-                            type=str)
+    # torch device of the port's entry points ('cuda' when absent)
+    parser.add_argument("--device", dest="device", required=False, type=str)
     return parser
 
 

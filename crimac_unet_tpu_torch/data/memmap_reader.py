@@ -13,9 +13,9 @@ frequency + label memmaps, exactly the on-disk contract of the reference
 ``shape`` is (H=range, W=pings); the zarr reader's shape is (pings, range)
 (reference dataset.py:141-144) — callers must honour ``data_format``.
 
-The prediction path reads whole slabs through ``data_memmaps``; the
-per-crop training readers and the plotting hook are not part of the port
-yet.
+The prediction path reads whole slabs through ``data_memmaps``; training
+reads one crop at a time through ``crop_data`` / ``crop_labels``.  The
+plotting hook is not part of the port yet.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ import pickle
 
 import numpy as np
 
+from ..constants import DATA_BOUNDARY_VAL, LABEL_BOUNDARY_VAL
+from ..utils.grids import extract_crop_2d
 from .seabed import estimate_seabed_memmap
 
 
@@ -244,6 +246,29 @@ class Echogram:
         seabed = np.clip(seabed, 0, None)
         rows = np.arange(n_range)[:, None]
         return (rows >= seabed[None, :]).astype(np.float64)
+
+    # ---------------------------------------------------------------- crop
+    def crop_data(self, center, window, frequencies):
+        """(C, H, W) float32 crop with out-of-bounds filled with
+        DATA_BOUNDARY_VAL and non-finite values zeroed
+        (reference batch/dataset.py:254-285)."""
+        center = list(center)
+        if self.shape[0] <= window[0]:
+            center[0] = self.shape[0] // 2  # window spans the water column
+        chans = []
+        for m in self.data_memmaps(frequencies):
+            crop = extract_crop_2d(m, center, window,
+                                   DATA_BOUNDARY_VAL).astype(np.float32)
+            np.nan_to_num(crop, copy=False, nan=0.0, posinf=0.0, neginf=0.0)
+            chans.append(crop)
+        return np.stack(chans, axis=0)
+
+    def crop_labels(self, center, window):
+        center = list(center)
+        if self.shape[0] <= window[0]:
+            center[0] = self.shape[0] // 2
+        return extract_crop_2d(self.label_memmap(), center, window,
+                               LABEL_BOUNDARY_VAL).astype(np.int16)
 
 
 def get_echograms(years="all", path_to_echograms=None,

@@ -1,31 +1,46 @@
-"""Survey partitioning for prediction and evaluation (memmap and zarr).
+"""Survey partitioning into train/validation/evaluation sets (memmap and
+zarr).
 
-The evaluation half of the JAX package's ``crimac_unet_tpu/data/
-partition.py`` (reference crimac_unet/data/partition.py:29-383): the
-``partition_predict`` policies ``selected surveys`` and ``all surveys``
-(the hard-coded 2007-2018 evaluation list) and per-survey reader lookup,
-for both data modes.  The training split and the sampler battery come
-with the training slice.
+The port's counterpart of ``crimac_unet_tpu/data/partition.py`` (reference
+crimac_unet/data/partition.py:29-383): the ``partition_predict`` policies
+``selected surveys`` and ``all surveys`` (the hard-coded 2007-2018
+evaluation list) and per-survey reader lookup for both data modes; for
+memmap surveys also the training split (``partition_train``: ``random``
+85/15 at the fixed seed 10, ``selected surveys``, ``all surveys``) and the
+six-sampler battery with probabilities [1, 5, 5, 5, 5, 5].  Zarr training
+comes with ROADMAP A1b.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
+from . import samplers as S
 from .memmap_reader import get_echograms
 from .zarr_reader import get_zarr_readers
 
 EVAL_ALL_SURVEYS = [2007, 2008, 2009, 2010, 2011, 2013, 2014, 2015, 2016,
                     2017, 2018]
+SAMPLER_PROBS = [1, 5, 5, 5, 5, 5]
+_PARTITIONS = ("random", "selected surveys", "all surveys")
+ZARR_TRAINING = ("zarr training (zarr samplers, the zarr sample pool, STOX "
+                 "valid pings) is ROADMAP.md queue A, A1b")
 
 
 class _DataPartition:
     def __init__(self, frequencies, patch_size, partition_predict,
-                 evaluation_surveys, eval_mode, patch_overlap=20, **kwargs):
+                 evaluation_surveys, eval_mode, patch_overlap=20,
+                 partition_train="selected surveys", train_surveys=(),
+                 validation_surveys=(), **kwargs):
         self.frequencies = sorted(frequencies)
         self.window_size = patch_size
         self.partition_predict = partition_predict
         self.evaluation_surveys = evaluation_surveys
         self.eval_mode = eval_mode
         self.patch_overlap = patch_overlap
+        self.partition_train = partition_train
+        self.train_surveys = train_surveys
+        self.validation_surveys = validation_surveys
 
     def get_evaluation_surveys(self):
         if self.partition_predict == "all surveys":
@@ -34,6 +49,19 @@ class _DataPartition:
             return self.evaluation_surveys
         raise ValueError(f"partition_predict options: 'selected surveys' or "
                          f"'all surveys', not {self.partition_predict}")
+
+    def _sampler_battery(self, readers):
+        half = self.window_size[0] // 2
+        return [
+            S.Background(readers, self.window_size),
+            S.Seabed(readers, self.window_size),
+            S.School(readers, self.window_size, 27),
+            S.School(readers, self.window_size, 1),
+            S.SchoolSeabed(readers, self.window_size,
+                           max_dist_to_seabed=half, fish_type=27),
+            S.SchoolSeabed(readers, self.window_size,
+                           max_dist_to_seabed=half, fish_type=1),
+        ]
 
 
 class DataMemm(_DataPartition):
@@ -46,17 +74,61 @@ class DataMemm(_DataPartition):
             minimum_shape=self.window_size[0],
             path_to_echograms=path_to_echograms)
 
+    def partition_data_train(self):
+        if self.partition_train not in _PARTITIONS:
+            raise ValueError(f"unknown partition_train "
+                             f"{self.partition_train!r}; expected one of "
+                             f"{sorted(_PARTITIONS)}")
+        if self.partition_train == "random":
+            readers = list(self.readers)
+            rng = np.random.RandomState(10)  # fixed split seed
+            rng.shuffle(readers)
+            cut = int(0.85 * len(readers))
+            train, test = readers[:cut], readers[cut:]
+        elif self.partition_train == "selected surveys":
+            train = [r for r in self.readers if r.year in self.train_surveys]
+            test = [r for r in self.readers
+                    if r.year in self.validation_surveys]
+            # empty survey lists would otherwise fail deep inside the
+            # sampler battery with a misleading 'fish_type not found'
+            if not train or not test:
+                raise ValueError(
+                    "partition_train='selected surveys' selected "
+                    f"{len(train)} train / {len(test)} validation readers "
+                    f"(train_surveys={self.train_surveys}, "
+                    f"validation_surveys={self.validation_surveys}, "
+                    f"available years="
+                    f"{sorted({r.year for r in self.readers})}); set the "
+                    "survey-year lists in the config")
+        else:  # all surveys
+            train = self.readers
+            test = [r for r in self.readers if r.year == 2017]
+        return train, test
+
+    def get_samplers_train(self, readers_train=None, readers_test=None):
+        if readers_train is None or readers_test is None:
+            readers_train, readers_test = self.partition_data_train()
+        return (self._sampler_battery(readers_train),
+                self._sampler_battery(readers_test),
+                list(SAMPLER_PROBS))
+
     def get_survey_readers(self, survey):
         return [r for r in self.readers if r.year == survey]
 
 
 class DataZarr(_DataPartition):
     """Zarr-mode partition (reference partition.py:193-383), evaluation
-    half."""
+    half; its training half raises (ROADMAP A1b)."""
 
     def __init__(self, *args, path_to_zarr_files=None, **kwargs):
         super().__init__(*args, **kwargs)
         self._zarr_root = path_to_zarr_files
+
+    def partition_data_train(self):
+        raise NotImplementedError(ZARR_TRAINING)
+
+    def get_samplers_train(self, readers_train=None, readers_test=None):
+        raise NotImplementedError(ZARR_TRAINING)
 
     def get_survey_readers(self, survey):
         # predict/eval discovery: unannotated surveys allowed (degraded

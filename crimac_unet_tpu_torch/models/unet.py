@@ -1,4 +1,4 @@
-"""PyTorch U-Net for echogram segmentation (eval-mode forward).
+"""PyTorch U-Net for echogram segmentation (train and eval forward).
 
 The flagship model of the reference (crimac_unet/models/unet.py:169-391)
 and of the JAX package (crimac_unet_tpu/models/unet.py): an encoder of
@@ -15,18 +15,25 @@ per level (4 -> 64 -> ... -> 1024 at depth 5, ~31M parameters).
   inside; logits come back NHWC float32.
 * Casting follows flax: parameters are float32; conv inputs and weights are
   cast to the compute ``dtype``, the bias is added in the compute dtype,
-  eval BatchNorm runs in float32 and casts back.
+  BatchNorm runs in float32 and casts back.  Gradients reach the float32
+  parameters through the casts.
+* Train mode (``model.train()``) is flax's BatchNorm, not torch's: batch
+  statistics in float32 with the fast variance ``max(0, E[x^2] - E[x]^2)``
+  (biased), running statistics ``0.9 * running + 0.1 * batch`` (flax's
+  momentum 0.9), eps 1e-5; so the statistics mean the same in both
+  packages' checkpoints.
 * Metadata channels (``meta_channels``): early inject widens the input to
   ``len(frequencies) + get_in_channels(meta_channels)`` bands; late inject
   (``late_meta_inject``) runs the reference's per-pixel MLP over the
   metadata and concatenates its one channel before ``conv_final``
   (reference unet.py:346-391, state-dict names
   ``post_processing_weights.main.{0,2,4}``).
-* The level-0 pool runs through the hand-written kernels
+* In eval mode the level-0 pool runs through the hand-written kernels
   (ops/pool.py): with BatchNorm folded (``use_bn=False``) the raw conv2
   output goes to ``relu_pool_skip``; with BatchNorm it is ``maxpool2x2``
-  after the ReLU.  Deeper levels use ``F.max_pool2d``, as the JAX package
-  leaves them to XLA.
+  after the ReLU.  Deeper levels, and every level in train mode (the
+  kernels have no backward, as the Pallas ones have no VJP), use
+  ``F.max_pool2d``, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -51,6 +58,24 @@ def _bn(x, bn, dtype):
         return x
     mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
     y = (x.float() - bn.running_mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
+    return (y + bn.bias.view(1, -1, 1, 1)).to(dtype)
+
+
+BN_MOMENTUM = 0.9   # flax's: running = m * running + (1 - m) * batch
+
+
+def _bn_train(x, bn, dtype):
+    """flax's train-mode BatchNorm: batch statistics in float32 (mean and
+    the fast biased variance), running statistics updated in place, the
+    normalization in float32 and cast back."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean * (1 - BN_MOMENTUM))
+        bn.running_var.mul_(BN_MOMENTUM).add_(var * (1 - BN_MOMENTUM))
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
     return (y + bn.bias.view(1, -1, 1, 1)).to(dtype)
 
 
@@ -80,11 +105,11 @@ class DownConv(nn.Module):
             nn.Conv2d(out_channels, out_channels, 3, padding=1),
             _norm(out_channels, use_bn), nn.ReLU())
 
-    def forward(self, x, dtype, pool_kernels: bool):
+    def forward(self, x, dtype, pool_kernels: bool, norm=_bn):
         conv1, bn1, conv2, bn2 = (self.main[0], self.main[1], self.main[3],
                                   self.main[4])
-        x = torch.relu(_bn(_conv(x, conv1, dtype), bn1, dtype))
-        y = _bn(_conv(x, conv2, dtype), bn2, dtype)
+        x = torch.relu(norm(_conv(x, conv1, dtype), bn1, dtype))
+        y = norm(_conv(x, conv2, dtype), bn2, dtype)
         if pool_kernels and self.pooling and not self.use_bn:
             pooled, skip = relu_pool_skip(_nhwc(y))
             return _nchw(pooled), _nchw(skip)
@@ -109,13 +134,13 @@ class UpConv(nn.Module):
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         self.bn2 = _norm(out_channels, use_bn)
 
-    def forward(self, from_down, from_up, dtype):
+    def forward(self, from_down, from_up, dtype, norm=_bn):
         up = F.conv_transpose2d(from_up, self.upconv.weight.to(dtype), None,
                                 stride=2)
         up = up + self.upconv.bias.to(dtype).view(1, -1, 1, 1)
         x = torch.cat([up, from_down], dim=1)
-        x = torch.relu(_bn(_conv(x, self.conv1, dtype), self.bn1, dtype))
-        return torch.relu(_bn(_conv(x, self.conv2, dtype), self.bn2, dtype))
+        x = torch.relu(norm(_conv(x, self.conv1, dtype), self.bn1, dtype))
+        return torch.relu(norm(_conv(x, self.conv2, dtype), self.bn2, dtype))
 
 
 class MetaPostProcessing(nn.Module):
@@ -141,9 +166,10 @@ class MetaPostProcessing(nn.Module):
 
 
 class UNet(nn.Module):
-    """U-Net encoder/decoder, eval mode only: NHWC in, NHWC float32
-    logits out.  ``use_bn=False`` is the BatchNorm-folded serving form
-    (models/fold_bn.py).  ``late_meta_inject`` adds the metadata MLP over
+    """U-Net encoder/decoder: NHWC in, NHWC float32 logits out; train mode
+    (``model.train()``) runs with autograd and flax's BatchNorm, eval mode
+    without autograd.  ``use_bn=False`` is the BatchNorm-folded serving
+    form (models/fold_bn.py), eval only.  ``late_meta_inject`` adds the metadata MLP over
     ``meta_channels`` input channels; ``forward`` then takes ``meta``."""
 
     def __init__(self, n_classes=3, depth=5, start_filts=64, in_channels=4,
@@ -175,23 +201,31 @@ class UNet(nn.Module):
             outs += 1
         self.conv_final = nn.Conv2d(outs, n_classes, 1)
 
-    @torch.no_grad()
     def forward(self, x, meta=None):
         """``x`` (B, H, W, C) NHWC; ``meta`` (B, H, W, M) NHWC metadata for
         late inject (early inject concatenates it into ``x``)."""
-        if self.training:
-            raise NotImplementedError(
-                "the port's U-Net is eval-only so far (training is "
-                "ROADMAP.md queue A); call .eval()")
         if self.late_meta_inject and meta is None:
             raise ValueError("late_meta_inject requires meta input")
+        if not self.training:
+            with torch.no_grad():
+                return self._forward(x, meta, train=False)
+        if not self.use_bn:
+            # silently training a BN-folded model would corrupt the
+            # folded statistics
+            raise ValueError("BN-folded models are eval-only")
+        return self._forward(x, meta, train=True)
+
+    def _forward(self, x, meta, train: bool):
+        norm = _bn_train if train else _bn
         x = _nchw(x.contiguous()).to(self.dtype)  # channels_last NCHW view
         encoder_outs = []
         for i, down in enumerate(self.down_convs):
-            x, before_pool = down(x, self.dtype, pool_kernels=i == 0)
+            x, before_pool = down(x, self.dtype,
+                                  pool_kernels=i == 0 and not train,
+                                  norm=norm)
             encoder_outs.append(before_pool)
         for i, up in enumerate(self.up_convs):
-            x = up(encoder_outs[-(i + 2)], x, self.dtype)
+            x = up(encoder_outs[-(i + 2)], x, self.dtype, norm=norm)
         if self.late_meta_inject:
             m = self.post_processing_weights(meta, self.dtype)
             x = torch.cat([x, _nchw(m)], dim=1)
@@ -240,4 +274,23 @@ def init_random_(model: UNet, generator: torch.Generator) -> UNet:
             uniform_(m.bias, -0.1, 0.1)
             uniform_(m.running_mean, -0.1, 0.1)
             uniform_(m.running_var, 0.5, 1.5)
+    return model
+
+
+@torch.no_grad()
+def init_train_(model: UNet, generator: torch.Generator) -> UNet:
+    """torch's default initialisation from an explicit generator, as the
+    reference trains from it (and the JAX package's initializers follow
+    it): conv, transpose-conv and linear weights and biases
+    U(+-1/sqrt(fan_in)) with torch's fan-in convention
+    (``weight.size(1) * kh * kw``, for transpose convs too), BatchNorm
+    scale 1, bias 0, running mean 0, running variance 1."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            b = m.weight[0].numel() ** -0.5
+            for t in (m.weight, m.bias):
+                t.copy_(torch.rand(t.shape, generator=generator) * (2 * b)
+                        - b)
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
     return model

@@ -1,4 +1,5 @@
-"""dB transforms of raw sv as torch tensor functions.
+"""dB transforms of raw sv as torch tensor functions, and the train and
+test data chains of the train and eval steps.
 
 Same constants and float32 arithmetic as the reference's numpy transforms
 (crimac_unet/batch/data_transforms/db_with_limits.py:20-39).  NaN (from the
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..constants import LABEL_BOUNDARY_VAL
+from ..constants import LABEL_BOUNDARY_VAL, LABEL_IGNORE_VAL
 
 DB_EPS = 1e-10
 DB_LOW = -75.0
@@ -23,6 +24,16 @@ def _div(x: torch.Tensor, c: float) -> torch.Tensor:
     rounded reciprocal, one ulp away from the division the kernels (and
     the JAX package) do."""
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def remove_nan_inf(data, labels, new_value=0.0):
+    """Non-finite data -> ``new_value``; labels where *channel 0* is
+    non-finite -> IGNORE (reference remove_nan_inf.py:22-33).  Layout:
+    data (B, C, H, W), labels (B, H, W)."""
+    labels = torch.where(torch.isfinite(data[:, 0]), labels,
+                         LABEL_IGNORE_VAL)
+    data = torch.where(torch.isfinite(data), data, new_value)
+    return data, labels
 
 
 def db(data: torch.Tensor, eps: float = DB_EPS) -> torch.Tensor:
@@ -55,6 +66,21 @@ def set_data_border_value(data, labels, border_value=0.0,
     border = border[:, :, :, None] if channels_last \
         else border[:, None, :, :]
     return torch.where(border, border_value, data)
+
+
+def data_transform_train(data, labels, scaled=False):
+    """Train-time data chain [remove_nan_inf, db_with_limits]
+    (reference transforms.py:48-54)."""
+    data, labels = remove_nan_inf(data, labels)
+    data = db_with_limits_scaled(data) if scaled else db_with_limits(data)
+    return data, labels
+
+
+def data_transform_test(data, labels, scaled=False):
+    """Test-time data chain adds border zeroing
+    (reference transforms.py:57-64)."""
+    data, labels = data_transform_train(data, labels, scaled)
+    return set_data_border_value(data, labels), labels
 
 
 # transfer_dtype='uint8': dB codes per the [-75, 0] clip range.  code =

@@ -95,9 +95,10 @@ def refine_label_boundary(data: torch.Tensor, labels: torch.Tensor,
         d = data[..., threshold_freq_idx] if channels_last \
             else data[:, threshold_freq_idx]
         # the thresholds in the data's dtype, as JAX's weakly typed
-        # Python floats compare
-        lo = torch.tensor(threshold_lo, dtype=d.dtype, device=d.device)
-        hi = torch.tensor(threshold_hi, dtype=d.dtype, device=d.device)
+        # Python floats compare; filled on the device (no host copy, so
+        # the train step has no host sync)
+        lo = torch.full((), threshold_lo, dtype=d.dtype, device=d.device)
+        hi = torch.full((), threshold_hi, dtype=d.dtype, device=d.device)
         threshold_mask = (d > lo) & (d < hi)
     mask_threshold = (labels > 0) & threshold_mask
     closed = binary_closing(mask_threshold.contiguous(),

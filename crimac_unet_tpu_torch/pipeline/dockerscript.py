@@ -5,7 +5,7 @@
 Honours the reference container contract (crimac_unet/dockerscript.py:1-82),
 as the JAX package's ``crimac_unet_tpu/pipeline/dockerscript.py`` does:
 
-    env MODEL    -> /model/<MODEL>            checkpoint (reference .pt)
+    env MODEL    -> /model/<MODEL>            checkpoint (.pt or .msgpack)
     env SURVEY   -> /datain/<SURVEY>/ACOUSTIC/GRIDDED/<SURVEY>_sv.zarr
     env CONFIG   -> /configs/<CONFIG>         yaml config
     env ZARRFILE -> /dataout/<ZARRFILE>       prediction store

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import datetime
 import random
 import time
 
@@ -16,6 +17,10 @@ def fix_seeds(random_seed: int) -> None:
     np.random.seed(random_seed)
     random.seed(random_seed)
     torch.manual_seed(random_seed)
+
+
+def get_datetime_str() -> str:
+    return datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
 
 
 class PhaseTimer:

@@ -274,3 +274,89 @@ def test_relu_pool_skip_kernel_slab_geometry_bit_equal_plain(cuda):
     for got, want in zip(relu_pool_skip(x), relu_pool_skip_reference(x)):
         _assert_equal_nan(got, want)
     assert cuda_lib.launches["relu_pool_skip"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [4, 16])
+def test_closing_kernel_train_mask_shapes(cuda, B):
+    """K4 at the train step's mask shapes (batch 4 and 16, patch 256):
+    random masks under full and inner clip boxes, bit-equal to plain."""
+    g = torch.Generator().manual_seed(B)
+    mask = torch.rand((B, 256, 256), generator=g) < 0.4
+    clip = torch.ones_like(mask)
+    clip[1::2, :, :20] = False
+    clip[::3, 230:] = False
+    mask, clip = mask.to(cuda), clip.to(cuda)
+    before = cuda_lib.launches["binary_closing"]
+    got = binary_closing(mask, clip)
+    assert torch.equal(got, binary_closing_reference(mask, clip))
+    assert cuda_lib.launches["binary_closing"] == before + 1
+
+
+@pytest.mark.gpu
+def test_gather_crops_on_card_equals_cpu(cuda):
+    from crimac_unet_tpu_torch.data.device_pool import gather_crops
+    g = torch.Generator().manual_seed(3)
+    data = torch.rand((3, 4, 300, 500), generator=g)
+    labels = torch.randint(-100, 30, (3, 300, 500), generator=g,
+                           dtype=torch.int32)
+    idx = torch.tensor([0, 2, 1, 2], dtype=torch.int32)
+    starts = torch.tensor([[0, 0], [44, 244], [-5, 9000], [100, 3]],
+                          dtype=torch.int32)
+    want = gather_crops(data, labels, idx, starts, (256, 256))
+    got = gather_crops(data.to(cuda), labels.to(cuda), idx.to(cuda),
+                       starts.to(cuda), (256, 256))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One float32 train step (TF32 off, augmentation off) on the card and
+    on the CPU from the same weights and batch: the labels after the
+    train chain identical (K4 against the plain closing), the loss within
+    1e-4 relative and each update within 5e-2 relative in max-norm plus
+    one ulp of its parameter (cuDNN and the CPU sum in other orders; a
+    conv bias ahead of a BatchNorm has zero gradient and is skipped)."""
+    from crimac_unet_tpu_torch.models.unet import build_unet, init_train_
+    from crimac_unet_tpu_torch.ops import augment
+    from crimac_unet_tpu_torch.pipeline import engine
+    monkeypatch.setattr(augment, "augment_train",
+                        lambda gen, d, lab: (d, lab))
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = {"patch_size": [64, 64], "depth": 3, "start_filts": 8,
+           "frequencies": [18, 38, 120, 200], "lr": 0.005,
+           "lr_reduction": 0.5, "lr_step": 1000, "momentum": 0.95,
+           "compute_dtype": "float32"}
+    rng = np.random.RandomState(2)
+    data = torch.from_numpy(rng.lognormal(np.log(3e-6), 1.5, (4, 4, 64, 64))
+                            .astype(np.float32))
+    labels = np.zeros((4, 64, 64), np.int32)
+    labels[:, 10:30, 12:40] = 27
+    labels[:, 40:52, 20:50] = 1
+    labels[0, :, 56:] = -100
+    labels = torch.from_numpy(labels)
+    out = {}
+    for dev in ("cpu", cuda):
+        net = init_train_(build_unet(cfg), torch.Generator().manual_seed(1))
+        p0 = {n: p.detach().clone() for n, p in net.named_parameters()}
+        net.to(dev)
+        chain = engine._train_labels(data.to(dev), labels.to(dev), -1)
+        state = engine.init_train_state(net, cfg)
+        loss = engine.make_train_step(cfg)(state, data.to(dev),
+                                           labels.to(dev), None)
+        out[str(dev)] = (chain.cpu(), float(loss), p0,
+                         {n: p.detach().cpu() for n, p in
+                          net.named_parameters()})
+    (c0, l0, p0, p1), (c1, l1, _, q1) = out["cpu"], out[str(cuda)]
+    assert torch.equal(c0, c1)
+    assert abs(l1 - l0) <= 1e-4 * abs(l0)
+    for name in p0:
+        if name.endswith(".bias") and (".main.0." in name or ".main.3." in
+                                       name or ".conv" in name):
+            continue
+        up, ref = q1[name] - p0[name], p1[name] - p0[name]
+        ulp = float(torch.max(torch.abs(p0[name])) * 2 ** -23)
+        assert float((up - ref).abs().max()) <= \
+            5e-2 * float(ref.abs().max()) + ulp, name

@@ -13,9 +13,9 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "crimac_unet_tpu_torch"
-# pandas: the card's machine has none
+# pandas and msgpack: the card's machine has none
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ml_dtypes",
-             "crimac_unet_tpu", "pandas"}
+             "crimac_unet_tpu", "pandas", "msgpack"}
 
 
 def _imported_roots(path: Path):
@@ -54,7 +54,7 @@ def test_runner_on_cpu_leaves_jax_out_of_sys_modules():
 import sys
 from crimac_unet_tpu_torch.models.unet import build_unet
 from crimac_unet_tpu_torch.pipeline import (dockerscript, evaluate,
-                                            save_predict, school_eval)
+                                            save_predict, school_eval, train)
 from crimac_unet_tpu_torch.data import meta_channels
 from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
 from crimac_unet_tpu_torch.data import zarr_reader, preprocess, fixtures

@@ -16,6 +16,7 @@ import torch
 from crimac_unet_tpu.models.fold_bn import fold_for_serving
 from crimac_unet_tpu.models.torch_import import save_torch_checkpoint
 from crimac_unet_tpu.models.unet import UNet as JaxUNet
+from crimac_unet_tpu.pipeline.engine import save_checkpoint
 from crimac_unet_tpu_torch.models import weights
 from crimac_unet_tpu_torch.models.fold_bn import (fold_for_serving as
                                                   torch_fold_for_serving,
@@ -110,8 +111,13 @@ def test_pt_checkpoint_from_jax_package_loads(tmp_path):
     want = np.asarray(model.apply(v, jnp.asarray(x), train=False))
     np.testing.assert_allclose(net(torch.from_numpy(x)).numpy(), want,
                                rtol=0, atol=ATOL)
-    with pytest.raises(ValueError, match="save_torch_checkpoint"):
-        weights.load_checkpoint(tmp_path / "model.msgpack")
+    # the JAX package's native msgpack checkpoint loads to the same
+    # state dict (ROADMAP C1, closed)
+    save_checkpoint(tmp_path / "model.msgpack", v)
+    sd2 = weights.load_checkpoint(tmp_path / "model.msgpack")
+    assert set(sd2) == set(sd)
+    for k in sd:   # the .pt's num_batches_tracked is (1,), unread
+        assert torch.equal(sd2[k].reshape(sd[k].shape), sd[k]), k
 
 
 def test_fold_is_exact_on_weights():
@@ -141,5 +147,9 @@ def test_seeded_init_and_build():
     # late inject needs metadata channels to feed its MLP
     with pytest.raises(ValueError, match="late_meta_inject"):
         build_unet(dict(cfg, late_meta_inject=True))
-    with pytest.raises(NotImplementedError, match="eval"):
-        a.train()(torch.zeros(1, 16, 16, 4))
+    # train mode runs with autograd; a BatchNorm-folded model is eval-only
+    out = a.train()(torch.zeros(2, 16, 16, 4))
+    assert out.shape == (2, 16, 16, 3) and out.requires_grad
+    folded = UNet(depth=3, start_filts=8, use_bn=False)
+    with pytest.raises(ValueError, match="eval-only"):
+        folded.train()(torch.zeros(1, 16, 16, 4))
