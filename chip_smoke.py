@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase, on CUDA device 0
     python3 chip_smoke.py --phases 1,2     # a subset (debugging)
     python3 chip_smoke.py --phases 1,12 --recipe baseline   # + a recipe
+    python3 chip_smoke.py --phases 1 --recipe meta-early
 
 Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit; imports
 nothing of JAX or of the JAX package.  Phases, in order; any failure
@@ -26,7 +27,11 @@ raises and the script exits nonzero without its result line:
    first chunk's whole grid (N = 1; uint8, bfloat16 and float32 slabs,
    scaled and not, shipped short of the grid in rows and columns), K3
    at (1, H16, W16, 64); K4 also at the train step's mask shapes
-   (4, 256, 256) and (16, 256, 256);
+   (4, 256, 256) and (16, 256, 256); then the sample pools' gathers at
+   the training batch (4, 256, 256): ``ZarrSamplePool`` on the phase-13
+   survey bit-equal to the host zarr crops (corners and every edge), and
+   ``gather_meta_crops`` on the phase-12 survey within rtol 1e-5, atol
+   1e-6 of the host ``crop_meta`` for the six families;
 3. small agreement runs on the CPU (plain versions) and on the card
    (kernels), depth 3 / start_filts 8, float32, TF32 off: one synthetic
    echogram through the whole predict path (BatchNorm folded and
@@ -41,7 +46,9 @@ raises and the script exits nonzero without its result line:
    evaluation); then one and two float32 train steps (augmentation off)
    from the same weights and crops: labels after the train chain
    identical, loss and updates within stated tolerances, and the pooled
-   step equal to the host-crop step;
+   step equal to the host-crop step; then one pooled step, CPU vs card,
+   over a zarr pool and over metadata pools (early and late inject) with
+   the same tolerances;
 4. the prediction main path at full width: ``run_save_predictions`` on a
    seeded 1000 x 4000 x 4 memmap echogram with the flagship U-Net (depth
    5, start_filts 64, seeded random weights, bfloat16, patch 256 /
@@ -86,16 +93,29 @@ raises and the script exits nonzero without its result line:
     once per validation step, K3 never, best/last msgpack checkpoints
     and sidecars written; resume from the step-200 checkpoint (step,
     momentum buffers, weights); the step time by CUDA events over 50
-    steps, the profiler over 20; the trained best.msgpack served and
-    evaluated (BatchNorm folded) on the 2016 survey;
+    steps (no host sync inside), the profiler over 20; the trained
+    best.msgpack served and evaluated (BatchNorm folded) on the 2016
+    survey, and scored there by school-detection evaluation (the
+    school_eval CLI's defaults);
+13. zarr training at full width, as phase 12 on the recipe fixture in
+    zarr form (one nested 2017 survey of 4200 pings with a STOX transects
+    CSV, 2016 of 2400 pings): ``ZarrSamplePool`` for training and
+    validation, the same checks, resume and step timing, and the trained
+    model served through ``save_survey_predictions_zarr`` and evaluated
+    (``evaluate_reader``) on 2016;
+14. metadata training at full width, early then late inject with the six
+    families of config_meta_train.yaml, as phase 12 with the metadata
+    crops computed on the card from the pools' vectors; each trained
+    model served and evaluated through the metadata paths of phase 10;
 
 and then one JSON line naming every kernel with its phase-2 numbers
 (slab geometry included), its launches on the main path that runs it
 (K1-K3 phase 4, K4 phase 5) and its launches on every path
-(``launches_by_path``; ``tr`` is phase 12's training run), then the last
-line ``{"ok": true, "device": {...}}``.  ``--recipe baseline|fast``
-trains the full reference recipe or the fast preset on the phase-12
-fixture after the selected phases and prints its best F1 and wall.
+(``launches_by_path``; ``tr``, ``tz``, ``tme`` and ``tml`` are the
+training runs of phases 12-14), then the last line ``{"ok": true,
+"device": {...}}``.  ``--recipe baseline|fast|meta-early|meta-late|zarr``
+trains a full recipe after the selected phases (``run_recipe``) and
+prints its best F1 and wall.
 
 Every path is driven with the launch counters set to 0 just before it
 and read just after.
@@ -132,6 +152,7 @@ KERNELS = {
         replaces="crimac_unet_tpu/ops/pallas_morphology.py:60"),
 }
 EVAL_CHUNK_COLS = 8           # evaluate_reader's column group
+TRAIN_ITERATIONS = 400        # phases 12-14: steps of each training path
 
 
 class SmokeFailure(RuntimeError):
@@ -416,6 +437,39 @@ def phase_kernels(torch, cuda_lib, card, reader, cfg):
               f"{shape} bf16: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) [{card}]")
+    # K2 at the training paths' validation shapes: batch 4 (the reference
+    # recipe) and 16 (the fast preset), patch 256
+    for tb in (4, 16):
+        tshape = (tb, 256, 256, cfg["start_filts"])
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(tshape, generator=torch.Generator().manual_seed(
+                SEED + tb)).mul_(2.0)
+            idx = torch.randperm(x.numel(), generator=torch.Generator(
+                ).manual_seed(SEED + tb + 1))[:64]
+            x.view(-1)[idx[:32]] = float("nan")
+            x.view(-1)[idx[32:48]] = float("inf")
+            x.view(-1)[idx[48:]] = float("-inf")
+            x = x.to(dev, dtype)
+            check(equal_nan(torch, maxpool2x2(x), maxpool2x2_reference(x)),
+                  f"maxpool2x2 != plain at {tshape} ({dtype})")
+            torch.cuda.synchronize()
+        # x is the float32 case; the training paths run it in bf16
+        x = x.to(torch.bfloat16)
+        n = x.numel()
+        bt, byt = bound_ms(n * 2 + n // 4 * 2, n)
+        nchw = x.permute(0, 3, 1, 2)
+        rt = dict(shape=list(tshape), max_abs_err=0.0,
+                  ms=cuda_ms(torch, lambda: maxpool2x2(x)),
+                  plain_ms=cuda_ms(torch, lambda: maxpool2x2_reference(x)),
+                  bound_ms=bt, bound_by=byt,
+                  library_ms=cuda_ms(torch,
+                                     lambda: F.max_pool2d(nchw, 2, 2)))
+        results["maxpool2x2"][f"train_batch_{tb}"] = rt
+        print(f"maxpool2x2 train shape {tshape}: bit-equal to plain (bf16 + "
+              f"f32, NaN/Inf); bf16 kernel {rt['ms']:.4f} ms, plain "
+              f"{rt['plain_ms']:.4f} ms, F.max_pool2d "
+              f"{rt['library_ms']:.4f} ms, bound {bt:.4f} ms ({byt}) "
+              f"[{card}]")
     results["binary_closing"] = phase_closing(torch, card, reader, cfg)
     phase_kernels_slab(torch, card, cfg, slabs, geom, border, per_elem,
                        results)
@@ -591,6 +645,100 @@ def _word_edge_closings(torch, g):
     return cases
 
 
+def _edge_centers(shape, rng, n=12):
+    """Crop centres (range row, ping column) in a (n_range, n_pings)
+    survey: its corners, crops straddling each edge, and random ones."""
+    n_range, n_pings = shape
+    fixed = [(0, 0), (-100, 50), (n_range - 1, n_pings - 1),
+             (n_range + 50, n_pings + 50), (n_range // 2, -30),
+             (10, n_pings - 5), (n_range - 20, n_pings // 2),
+             (n_range // 2, n_pings // 2)]
+    return fixed + [(int(rng.randint(-128, n_range + 128)),
+                     int(rng.randint(-128, n_pings + 128)))
+                    for _ in range(n)]
+
+
+def phase_pool_gathers(torch, tmp, card):
+    """The sample pools' gathers on the card against the host crops, at
+    the training batch (4, 256, 256) on the phase-13 and phase-12
+    surveys: ZarrSamplePool's data and labels bit-equal to
+    ``crop_data`` / ``crop_labels``, crops across every survey edge
+    included; ``gather_meta_crops`` within rtol 1e-5, atol 1e-6 of the
+    host ``crop_meta`` for the six families, Inf and NaN in the same
+    places."""
+    import numpy as np
+    from crimac_unet_tpu_torch.config import META_CHANNELS_ALL
+    from crimac_unet_tpu_torch.data.device_pool import (DeviceSamplePool,
+                                                        ZarrSamplePool,
+                                                        gather_crops,
+                                                        gather_meta_crops)
+    from crimac_unet_tpu_torch.data.memmap_reader import get_echograms
+    from crimac_unet_tpu_torch.data.meta_channels import crop_meta
+    from crimac_unet_tpu_torch.data.zarr_reader import get_zarr_readers
+
+    freqs, win = [18, 38, 120, 200], (256, 256)
+    rng = np.random.RandomState(SEED + 7)
+    zreaders = get_zarr_readers([2017], path_to_zarr_files=str(
+        zarr_train_fixture(tmp)), minimum_shape=256)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pool = ZarrSamplePool(zreaders, freqs, win, "cuda")
+    torch.cuda.synchronize()
+    upload = time.perf_counter() - t
+    (z,) = zreaders
+    samples = [(z, c) for c in _edge_centers(z.shape[::-1], rng)]
+    for k in range(0, len(samples), 4):
+        part = samples[k:k + 4]
+        idx, starts = (torch.from_numpy(a).cuda()
+                       for a in pool.prepare_batch(part))
+        d, lab = gather_crops(pool.data, pool.labels, idx, starts, win)
+        torch.cuda.synchronize()
+        for b, (r, c) in enumerate(part):
+            check(torch.equal(d[b].cpu(), torch.from_numpy(
+                r.crop_data(c, win, freqs))) and torch.equal(
+                lab[b].cpu(), torch.from_numpy(r.crop_labels(
+                    c, win).astype(np.int32))),
+                f"ZarrSamplePool gather != host crop at centre {c}")
+    zms = cuda_ms(torch, lambda: gather_crops(pool.data, pool.labels, idx,
+                                              starts, win))
+    print(f"ZarrSamplePool: canvas {tuple(pool.data.shape)} float32 + "
+          f"labels int32 = {(pool.data.numel() * 4 + pool.labels.numel() * 4)
+                            / 1e6:.1f} MB uploaded in {upload:.2f} s; "
+          f"gather of {len(samples)} crops (4, 256, 256) bit-equal to the "
+          f"host crops (corners and every edge); gather {zms:.4f} ms a "
+          f"batch [{card}]")
+    del pool
+
+    readers = [r for r in get_echograms(
+        frequencies=freqs, minimum_shape=256,
+        path_to_echograms=str(train_fixture(tmp))) if r.year == 2017]
+    pool = DeviceSamplePool(readers, freqs, win, "cuda",
+                            meta_channels=META_CHANNELS_ALL)
+    samples = [(r, c) for r in readers
+               for c in _edge_centers(r.shape, rng, n=4)]
+    worst = 0.0
+    for k in range(0, len(samples), 4):
+        part = samples[k:k + 4]
+        idx, starts = (torch.from_numpy(a).cuda()
+                       for a in pool.prepare_batch(part))
+        got = gather_meta_crops(*pool.meta_vectors, idx, starts, win,
+                                pool.meta_flags).cpu().numpy()
+        for b, (r, c) in enumerate(part):
+            want = crop_meta(r, c, win, META_CHANNELS_ALL)
+            check(np.array_equal(np.isnan(got[b]), np.isnan(want))
+                  and np.array_equal(np.isinf(got[b]), np.isinf(want))
+                  and np.allclose(got[b], want, rtol=1e-5, atol=1e-6),
+                  f"gather_meta_crops != host crop_meta at centre {c}")
+            fin = np.isfinite(want)
+            worst = max(worst, float(np.abs(got[b][fin] - want[fin]).max()))
+    mms = cuda_ms(torch, lambda: gather_meta_crops(
+        *pool.meta_vectors, idx, starts, win, pool.meta_flags))
+    print(f"gather_meta_crops: {len(samples)} crops (7, 256, 256) within "
+          f"rtol 1e-5, atol 1e-6 of the host crop_meta (max abs err "
+          f"{worst:.3g}), Inf/NaN in the same places; {mms:.4f} ms a "
+          f"batch of 4 [{card}]")
+
+
 def phase_closing(torch, card, reader, cfg):
     """K4 bit-equal to its plain version on the eval path's first
     sub-batch shape: random masks of density 0 / 0.3 / 0.75 / 1 under
@@ -719,6 +867,7 @@ def phase_agreement(torch, tmp):
         eval_agreement(torch, dict(cfg, fold_bn=True), sd, zreader)
         new_paths_agreement(torch, cfg, sd, reader, zreader)
         train_agreement(torch, reader)
+        pooled_step_agreement(torch, reader, zreader)
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
@@ -726,6 +875,36 @@ def phase_agreement(torch, tmp):
 
 _BIAS_BEFORE_BN = (".main.0.bias", ".main.3.bias", ".conv1.bias",
                    ".conv2.bias")
+
+
+def _check_step_agreement(torch, runs, label):
+    """Hold the card's train steps to the CPU's: ``runs[dev]`` = (labels
+    after the train chain per step, losses, parameters before the first
+    step and after each).  Labels identical, loss within 1e-4 relative,
+    each update within 5e-2 relative in max-norm plus one ulp of its
+    parameter (a conv bias ahead of a BatchNorm has zero gradient and is
+    skipped).  Returns the worst relative update difference."""
+    worst = 0.0
+    (c0s, l0s, p0), (c1s, l1s, p1) = runs["cpu"], runs["cuda"]
+    for k, (c0, c1, l0, l1) in enumerate(zip(c0s, c1s, l0s, l1s)):
+        check(torch.equal(c0, c1),
+              f"{label} {k + 1}: labels after the train chain differ "
+              f"between CPU and card")
+        check(abs(l1 - l0) <= 1e-4 * abs(l0),
+              f"{label} {k + 1}: loss {l1} on the card, {l0} on CPU")
+        for name in p0[0]:
+            if name.endswith(_BIAS_BEFORE_BN):
+                continue
+            up = p1[k + 1][name] - p1[k][name]
+            ref = p0[k + 1][name] - p0[k][name]
+            ulp = float(p0[k][name].abs().max()) * 2 ** -23
+            err = float((up - ref).abs().max())
+            scale = float(ref.abs().max())
+            check(err <= 5e-2 * scale + ulp,
+                  f"{label} {k + 1}: {name} update off by {err} "
+                  f"(max-norm {scale})")
+            worst = max(worst, err / max(scale, 1e-30))
+    return worst
 
 
 def train_agreement(torch, reader):
@@ -792,28 +971,7 @@ def train_agreement(torch, reader):
                                          None)))
                 ps.append(params(net))
             runs[dev] = (chains, losses, ps)
-        worst = 0.0
-        for k in range(2):
-            (c0, l0, p0), (c1, l1, p1) = (
-                (r[0][k], r[1][k], r[2]) for r in (runs["cpu"],
-                                                   runs["cuda"]))
-            check(torch.equal(c0, c1),
-                  f"train step {k + 1}: labels after the train chain differ "
-                  f"between CPU and card")
-            check(abs(l1 - l0) <= 1e-4 * abs(l0),
-                  f"train step {k + 1}: loss {l1} on the card, {l0} on CPU")
-            for name in p0[0]:
-                if name.endswith(_BIAS_BEFORE_BN):
-                    continue
-                up = p1[k + 1][name] - p1[k][name]
-                ref = p0[k + 1][name] - p0[k][name]
-                ulp = float(p0[k][name].abs().max()) * 2 ** -23
-                err = float((up - ref).abs().max())
-                scale = float(ref.abs().max())
-                check(err <= 5e-2 * scale + ulp,
-                      f"train step {k + 1}: {name} update off by {err} "
-                      f"(max-norm {scale})")
-                worst = max(worst, err / max(scale, 1e-30))
+        worst = _check_step_agreement(torch, runs, "train step")
         print(f"train steps 1-2, CPU vs card (float32, TF32 off): labels "
               f"identical, losses {runs['cpu'][1]} vs {runs['cuda'][1]}, "
               f"worst relative update difference {worst:.2e}")
@@ -842,6 +1000,72 @@ def train_agreement(torch, reader):
               "host-crop step's")
     finally:
         augment.augment_train = real_augment
+
+
+def pooled_step_agreement(torch, reader, zreader):
+    """One pooled float32 train step on the CPU and on the card (depth 3,
+    start_filts 8, patch 64, TF32 off, augmentation off) from the same
+    weights and pool coordinates, for a zarr pool (``ZarrSamplePool`` on
+    the phase-3 zarr survey) and for metadata early and late inject
+    (``DeviceSamplePool`` with the six families, the metadata crops
+    computed on each device): held as ``_check_step_agreement`` holds
+    the host-crop steps."""
+    from crimac_unet_tpu_torch.config import META_CHANNELS_ALL
+    from crimac_unet_tpu_torch.data.device_pool import (DeviceSamplePool,
+                                                        ZarrSamplePool,
+                                                        gather_crops)
+    from crimac_unet_tpu_torch.models.unet import build_unet, init_train_
+    from crimac_unet_tpu_torch.ops import augment
+    from crimac_unet_tpu_torch.pipeline import engine
+
+    base = {"patch_size": [64, 64], "depth": 3, "start_filts": 8,
+            "frequencies": [18, 38, 120, 200], "lr": 0.005,
+            "lr_reduction": 0.5, "lr_step": 1000, "momentum": 0.95,
+            "compute_dtype": "float32"}
+    win, freqs = (64, 64), base["frequencies"]
+    cases = [("zarr", base, ZarrSamplePool, zreader)] + [
+        (f"meta {'late' if late else 'early'}",
+         dict(base, meta_channels=META_CHANNELS_ALL, late_meta_inject=late),
+         DeviceSamplePool, reader) for late in (False, True)]
+    real = augment.augment_train, augment.augment_train_meta
+    augment.augment_train = lambda gen, d, lab: (d, lab)
+    augment.augment_train_meta = lambda gen, d, m, lab: (d, m, lab)
+    try:
+        for label, cfg, cls, rdr in cases:
+            # two crops on schools, one across the survey's first ping,
+            # one in the middle
+            boxes = [o["bounding_box"] for o in rdr.objects[:2]]
+            centers = [((y0 + y1) // 2, (x0 + x1) // 2)
+                       for y0, y1, x0, x1 in boxes] + [(40, 5), (100, 300)]
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                meta = cfg.get("meta_channels")
+                pool = cls([rdr], freqs, win, dev, meta_channels=meta)
+                idx, starts = (torch.from_numpy(a).to(dev) for a in
+                               pool.prepare_batch([(rdr, c)
+                                                   for c in centers]))
+                d, lab = gather_crops(pool.data, pool.labels, idx, starts,
+                                      win)
+                chain = engine._train_labels(d, lab, -1).cpu()
+                net = init_train_(build_unet(cfg), torch.Generator(
+                    ).manual_seed(SEED)).to(dev)
+                state = engine.init_train_state(net, cfg)
+                p0 = {n: q.detach().cpu().clone() for n, q in
+                      net.named_parameters()}
+                loss = engine.make_train_step_pooled(cfg)(
+                    state, pool.data, pool.labels, idx, starts, None,
+                    meta_vectors=pool.meta_vectors, flags=pool.meta_flags)
+                runs[dev] = ([chain], [float(loss)], [p0, {
+                    n: q.detach().cpu().clone() for n, q in
+                    net.named_parameters()}])
+            worst = _check_step_agreement(torch, runs,
+                                          f"pooled {label} step")
+            print(f"pooled {label} train step, CPU vs card (float32, TF32 "
+                  f"off): labels identical, loss {runs['cpu'][1][0]} vs "
+                  f"{runs['cuda'][1][0]}, worst relative update difference "
+                  f"{worst:.2e}")
+    finally:
+        augment.augment_train, augment.augment_train_meta = real
 
 
 def new_paths_agreement(torch, cfg, sd, reader, zreader):
@@ -1697,57 +1921,55 @@ def _pooled_batches(torch, cfg, pool, n):
              ds.batch(cfg["batch_size"]).items()} for _ in range(n)]
 
 
-def phase_train(torch, cuda_lib, tmp, card):
-    """Training at full width through ``run_training``: the flagship U-Net
-    (bfloat16, batch 4, patch 256) on the recipe fixture, 400 iterations,
-    validation every 200 over 50 batches, lr halved every 100 steps, a
-    periodic checkpoint every 200, both device pools on.  Then: resume
-    from the step-200 checkpoint, the step time by CUDA events, the
-    profiler's device share, and the trained best.msgpack served and
-    evaluated (BatchNorm folded) on the 2016 survey."""
+def _timed_spy(torch, obj, name, times):
+    """Wrap ``obj.name`` so each call's wall, between two device
+    synchronizations, is appended to ``times``; returns a restore
+    callable."""
+    def start(*args, **kwargs):
+        torch.cuda.synchronize()
+        times.append(-time.perf_counter())
+
+    def end(out, *args, **kwargs):
+        torch.cuda.synchronize()
+        times[-1] += time.perf_counter()
+    return _spy(obj, name, before=start, after=end)
+
+
+def train_path(torch, cuda_lib, tmp, card, cfg, tag, pool_type):
+    """``run_training`` at full width with the launch counters set to 0
+    just before and read just after, both device pools of ``pool_type``
+    on: the loss finite and falling, K4 once per train and validation
+    step, K2 once per validation step, K1 and K3 never, best/last
+    checkpoints and sidecars written.  Then resume from the step-200
+    checkpoint (step, momentum buffers, weights), the step alone by CUDA
+    events over 50 pooled steps with no host sync inside, and the
+    profiler's device time over 20 more.  Returns (segpipe, launches,
+    checkpoint dir, numbers)."""
     import shutil
     import warnings
 
     import numpy as np
-    from crimac_unet_tpu_torch.data.partition import make_partition
-    from crimac_unet_tpu_torch.models.unet import build_unet
-    from crimac_unet_tpu_torch.models.weights import load_checkpoint
     from crimac_unet_tpu_torch.pipeline import engine
-    from crimac_unet_tpu_torch.pipeline.evaluate import evaluate_survey
-    from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
-    from crimac_unet_tpu_torch.pipeline.save_predict import \
-        run_save_predictions
     from crimac_unet_tpu_torch.pipeline.segpipe import SegPipeUNet
     from crimac_unet_tpu_torch.pipeline.train import run_training
 
-    root = train_fixture(tmp)
-    cfg = recipe_config(root, iterations=400, log_step=200, test_iter=50,
-                        lr_step=100, checkpoint_every=200)
-    ck = tmp / "train_ck"
-    snap = {}
-    val_s = []
+    ck = tmp / f"train_ck_{tag}"
+    step200 = tmp / f"last_step200_{tag}.msgpack"
+    snap, val_s, upload_s = {}, [], []
 
     def snapshot(out, path, state, extras=None):
         if Path(path).name == "last.msgpack" and state.step == 200:
-            shutil.copy(path, tmp / "last_step200.msgpack")
-            shutil.copy(str(path) + ".json",
-                        tmp / "last_step200.msgpack.json")
+            shutil.copy(path, step200)
+            shutil.copy(str(path) + ".json", str(step200) + ".json")
             snap["momentum"] = {k: v.detach().cpu().clone() for k, v in
                                 engine.momentum_buffers(state).items()}
             snap["weights"] = {k: v.detach().cpu().clone() for k, v in
                                state.model.state_dict().items()}
 
-    def val_start(*args, **kwargs):
-        torch.cuda.synchronize()
-        val_s.append(-time.perf_counter())
-
-    def val_end(out, *args, **kwargs):
-        torch.cuda.synchronize()
-        val_s[-1] += time.perf_counter()
-
     restores = [_spy(engine, "save_checkpoint", after=snapshot),
-                _spy(SegPipeUNet, "validate_model_training",
-                     before=val_start, after=val_end)]
+                _timed_spy(torch, SegPipeUNet, "validate_model_training",
+                           val_s),
+                _timed_spy(torch, pool_type, "__init__", upload_s)]
     log = _Scalars()
     try:
         cuda_lib.reset_launches()
@@ -1760,49 +1982,53 @@ def phase_train(torch, cuda_lib, tmp, card):
     finally:
         for r in restores:
             r()
-    n_train, n_val = sp.state.step, 2 * cfg["test_iter"]
+    n_iter = int(cfg["iterations"])
+    n_train = sp.state.step
+    n_val = n_iter // int(cfg["log_step"]) * int(cfg["test_iter"])
     losses = np.asarray(log.values("train/loss"))
-    check(n_train == 400 and len(losses) == 400,
-          f"trained {n_train} steps, {len(losses)} losses logged")
-    check(np.isfinite(losses).all(), "a training loss is not finite")
-    first, last = losses[:100].mean(), losses[-100:].mean()
-    check(last < first, f"the loss did not fall: first 100 steps {first}, "
-                        f"last 100 {last}")
-    check(sp.pool is not None and sp.pool_val is not None,
-          "the device pools are not both on")
+    check(n_train == n_iter and len(losses) == n_iter,
+          f"{tag}: trained {n_train} steps, {len(losses)} losses logged")
+    check(np.isfinite(losses).all(), f"{tag}: a training loss is not finite")
+    q = n_iter // 4
+    first, last = losses[:q].mean(), losses[-q:].mean()
+    check(last < first, f"{tag}: the loss did not fall: first {q} steps "
+                        f"{first}, last {q} {last}")
+    check(type(sp.pool) is pool_type and type(sp.pool_val) is pool_type,
+          f"{tag}: pools {type(sp.pool).__name__}, "
+          f"{type(sp.pool_val).__name__}, not both {pool_type.__name__}")
+    check(len(upload_s) == 2, f"{tag}: {len(upload_s)} pool uploads")
     check(counts["binary_closing"] == n_train + n_val
           and counts["maxpool2x2"] == n_val
           and counts["relu_pool_skip"] == 0 and counts["gather_db"] == 0,
-          f"training launches {counts} for {n_train} train and {n_val} "
-          f"validation steps")
+          f"{tag}: training launches {counts} for {n_train} train and "
+          f"{n_val} validation steps")
     for name in ("best.msgpack", "last.msgpack"):
         check((ck / name).is_file() and (ck / (name + ".json")).is_file(),
-              f"{name} or its sidecar was not written")
+              f"{tag}: {name} or its sidecar was not written")
     f1s = log.values("test/F1_score")
-    print(f"training, 400 steps at full width: launches {counts}, wall "
-          f"{wall:.1f} s ({4 * 400 / wall:.1f} crops/s with validation), "
-          f"loss {first:.4f} (steps 1-100) -> {last:.4f} (301-400), "
-          f"validation F1 {f1s}, validation passes {val_s} s, peak device "
-          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-          f"[{card}]")
+    print(f"{tag}: training, {n_iter} steps at full width: launches "
+          f"{counts}, wall {wall:.1f} s ({cfg['batch_size'] * n_iter / wall:.1f}"
+          f" crops/s with validation), pool uploads (train, validation) "
+          f"{upload_s} s, loss {first:.4f} (first {q} steps) -> {last:.4f} "
+          f"(last {q}), validation F1 {f1s}, validation passes {val_s} s, "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
 
-    # resume from the step-200 checkpoint
-    check("momentum" in snap, "no step-200 checkpoint was written")
+    check("momentum" in snap, f"{tag}: no step-200 checkpoint was written")
     rs = SegPipeUNet(cfg)
-    rs.resume_from(tmp / "last_step200.msgpack")
+    rs.resume_from(step200)
     got = engine.momentum_buffers(rs.state)
     check(rs.state.step == 200 and all(
         torch.equal(got[k].cpu(), v) for k, v in snap["momentum"].items())
         and all(torch.equal(rs.model.state_dict()[k].cpu(), v)
                 for k, v in snap["weights"].items()),
-        "resume from the step-200 checkpoint did not restore the step, "
-        "the momentum buffers and the weights")
-    print(f"resumed from the step-200 last.msgpack: step {rs.state.step}, "
-          f"{len(got)} momentum buffers and the weights equal, best F1 "
-          f"{rs.best_F1_val}")
+        f"{tag}: resume from the step-200 checkpoint did not restore the "
+        "step, the momentum buffers and the weights")
+    print(f"{tag}: resumed from the step-200 last.msgpack: step "
+          f"{rs.state.step}, {len(got)} momentum buffers and the weights "
+          f"equal, best F1 {rs.best_F1_val}")
     del rs
 
-    # the step alone: CUDA events over 50 pooled steps, no host sync
     batches = _pooled_batches(torch, cfg, sp.pool, 75)
     for b in batches[:5]:
         sp.train_step(b)
@@ -1821,11 +2047,13 @@ def phase_train(torch, cuda_lib, tmp, card):
         torch.cuda.set_sync_debug_mode("default")
     end.synchronize()
     step_ms = start.elapsed_time(end) / 50
-    print(f"train step (pooled, {cfg['train_dtype']}, batch "
-          f"{cfg['batch_size']}): {step_ms:.3f} ms a step by "
-          f"CUDA events over 50 steps = "
-          f"{4 * 1000 / step_ms:.1f} crops/s; host syncs inside: "
-          f"{len(syncs)} [{card}]")
+    crops = cfg["batch_size"] * 1000 / step_ms
+    check(len(syncs) == 0, f"{tag}: {len(syncs)} host syncs inside the "
+                           f"step: {[str(w.message) for w in syncs[:3]]}")
+    print(f"{tag}: train step (pooled, {cfg['train_dtype']}, batch "
+          f"{cfg['batch_size']}): {step_ms:.3f} ms a step by CUDA events "
+          f"over 50 steps = {crops:.1f} crops/s; host syncs inside: 0 "
+          f"[{card}]")
 
     def twenty():
         t = time.perf_counter()
@@ -1833,74 +2061,277 @@ def phase_train(torch, cuda_lib, tmp, card):
             sp.train_step(b)
         torch.cuda.synchronize()
         return time.perf_counter() - t
+    print(f"{tag}: 20 pooled steps under the profiler:")
     profile_run(torch, twenty, card)
+    return sp, counts, ck, {"step_ms": step_ms, "crops/s": crops,
+                            "upload_s": upload_s, "wall_s": wall}
 
-    # serve and evaluate the trained best.msgpack (BatchNorm folded)
-    scfg = dict(cfg, save_prediction_surveys=[2016], compute_dtype="bfloat16",
-                fwd_batch=32, fold_bn=True, infer_mode="patch",
-                transfer_dtype="bfloat16", output_dtype="float16",
-                preload_n_pings=1000, partition_predict="selected surveys",
-                evaluation_surveys=[2016], static_grid=False,
-                pipeline_depth=3)
+
+def serve_trained(torch, cuda_lib, card, tag, scfg, ck, predict, evaluate):
+    """The trained best.msgpack served (``predict(runner)``, K1 and K3
+    once per forward) and evaluated (``evaluate(runner)`` -> histogram or
+    curve, K4 and K3 once per sub-batch), BatchNorm folded, each with the
+    launch counters set to 0 just before and read just after."""
+    from crimac_unet_tpu_torch.models.unet import build_unet
+    from crimac_unet_tpu_torch.models.weights import load_checkpoint
+    from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
     runner = GriddedRunner(build_unet(scfg),
                            load_checkpoint(ck / "best.msgpack"), scfg)
-    out = tmp / "train_preds"
-    out.mkdir()
     cuda_lib.reset_launches()
     f0 = runner.forwards
-    run_save_predictions(scfg, runner, str(out), path_to_echograms=str(root))
+    t = time.perf_counter()
+    predict(runner)
     torch.cuda.synchronize()
+    pdt = time.perf_counter() - t
     pc, fwd = dict(cuda_lib.launches), runner.forwards - f0
+    check(fwd > 0 and pc["gather_db"] == fwd and pc["relu_pool_skip"] == fwd,
+          f"{tag}: serving the trained model: launches {pc} for {fwd} "
+          f"forwards")
+    cuda_lib.reset_launches()
+    f0 = runner.forwards
+    out = evaluate(runner)
+    torch.cuda.synchronize()
+    ec, efwd = dict(cuda_lib.launches), runner.forwards - f0
+    if isinstance(out, dict):
+        f1 = float(out["F1"].max())
+    else:
+        f1 = _curve_scores(out)[0]
+    check(efwd > 0 and ec["binary_closing"] == efwd
+          and ec["relu_pool_skip"] == efwd and 0.0 <= f1 <= 1.0,
+          f"{tag}: evaluating the trained model: launches {ec} for {efwd} "
+          f"sub-batches, F1 {f1}")
+    print(f"{tag}: trained best.msgpack served on the 2016 survey: {fwd} "
+          f"forwards in {pdt:.3f} s, launches {pc}; evaluation mode all: "
+          f"max F1 {f1:.4f}, launches {ec} [{card}]")
+    return runner, f1
+
+
+def _serving_config(cfg, **kw):
+    return dict(cfg, save_prediction_surveys=[2016],
+                compute_dtype="bfloat16", fwd_batch=32, fold_bn=True,
+                infer_mode="patch", transfer_dtype="bfloat16",
+                output_dtype="float16", preload_n_pings=1000,
+                partition_predict="selected surveys",
+                evaluation_surveys=[2016], static_grid=False,
+                pipeline_depth=3, **kw)
+
+
+def _check_memm_preds(out, n):
+    import numpy as np
     preds = sorted(out.glob("*_pred.npy"))
-    check(len(preds) == 2 and fwd > 0 and pc["gather_db"] == fwd
-          and pc["relu_pool_skip"] == fwd,
-          f"serving the trained model: {len(preds)} outputs, launches {pc} "
-          f"for {fwd} forwards")
+    check(len(preds) == n, f"{len(preds)} outputs in {out}, not {n}")
     for pth in preds:
         pred = np.load(pth)
         check(np.isfinite(pred).all() and pred.min() >= 0
               and pred.max() <= 1, f"{pth.name}: not in [0, 1]")
-    part = make_partition(scfg)
+
+
+def phase_train(torch, cuda_lib, tmp, card, iterations=400):
+    """Training at full width through ``run_training`` (``train_path``) on
+    the memm recipe fixture, and the trained best.msgpack served and
+    evaluated (BatchNorm folded) on the 2016 survey, then scored by
+    school-detection evaluation with the school_eval CLI's defaults."""
+    from crimac_unet_tpu_torch.data import device_pool as dp
+    from crimac_unet_tpu_torch.data.partition import make_partition
+    from crimac_unet_tpu_torch.pipeline import school_eval
+    from crimac_unet_tpu_torch.pipeline.evaluate import evaluate_survey
+    from crimac_unet_tpu_torch.pipeline.save_predict import \
+        run_save_predictions
+
+    root = train_fixture(tmp)
+    cfg = recipe_config(root, **phase_train_settings(iterations))
+    sp, counts, ck, nums = train_path(torch, cuda_lib, tmp, card, cfg, "tr",
+                                      dp.DeviceSamplePool)
+
+    scfg = _serving_config(cfg)
+    out = tmp / "train_preds"
+    out.mkdir()
+    readers = make_partition(scfg).get_survey_readers(2016)
+    runner, _ = serve_trained(
+        torch, cuda_lib, card, "tr", scfg, ck,
+        lambda r: run_save_predictions(scfg, r, str(out),
+                                       path_to_echograms=str(root)),
+        lambda r: evaluate_survey(r, readers, "all"))
+    _check_memm_preds(out, 2)
+
+    # school-detection evaluation at trained weights, the CLI's defaults
     cuda_lib.reset_launches()
     f0 = runner.forwards
-    curve = evaluate_survey(runner, part.get_survey_readers(2016), "all")
+    t = time.perf_counter()
+    se = school_eval.school_eval_survey(
+        runner, readers, preload_n_pings=scfg["preload_n_pings"],
+        prob_threshold=0.5, min_area={"sandeel": 9, "other": 64},
+        merge_gap={"sandeel": 8, "other": 0},
+        save_path_metrics=str(tmp / "tr_school_eval.csv"),
+        save_path_detections=str(tmp / "tr_schools.csv"))
     torch.cuda.synchronize()
-    ec, efwd = dict(cuda_lib.launches), runner.forwards - f0
-    f1 = float(curve["F1"].max())
-    check(efwd > 0 and ec["binary_closing"] == efwd
-          and ec["relu_pool_skip"] == efwd and 0.0 <= f1 <= 1.0,
-          f"evaluating the trained model: launches {ec} for {efwd} "
-          f"sub-batches, F1 {f1}")
-    print(f"trained best.msgpack (best validation F1 {sp.best_F1_val:.4f}) "
-          f"served on the 2016 survey: {fwd} forwards, launches {pc}; "
-          f"evaluate_survey mode all: max F1 {f1:.4f}, launches {ec} "
-          f"[{card}]")
-    return counts, {"train crops/s (pooled step)": 4 * 1000 / step_ms}
+    dt = time.perf_counter() - t
+    sc, fwd = dict(cuda_lib.launches), runner.forwards - f0
+    check(fwd > 0 and sc["gather_db"] == fwd and sc["relu_pool_skip"] == fwd
+          and 0.0 <= se["mean_ap"] <= 1.0,
+          f"school eval at trained weights: launches {sc} for {fwd} "
+          f"forwards, mAP {se['mean_ap']}")
+    n_pings = sum(r.shape[1] for r in readers)
+    cats = ", ".join(f"{k} AP {m['ap']} mean {m['mean_ap']:.4f} "
+                     f"({m['n_detections']} det / {m['n_gt']} gt)"
+                     for k, m in se["categories"].items())
+    print(f"tr: school eval (memm, trained best.msgpack, threshold 0.5, "
+          f"min_area 9/64, merge_gap 8/0) on 2016: {fwd} forwards, "
+          f"launches {sc}, {dt:.3f} s = {n_pings / dt:.1f} pings/s; {cats}; "
+          f"mAP {se['mean_ap']:.4f} [{card}]")
+    return counts, {"train crops/s (pooled step)": nums["crops/s"],
+                    "school eval, trained (memm)": n_pings / dt}
+
+
+def phase_train_settings(iterations):
+    """Phases 12-14: the recipe cut to ``iterations`` steps, validation
+    every 200 over 50 batches (once at 200 steps), lr halved every 100,
+    a checkpoint every 200."""
+    return dict(iterations=iterations, log_step=200, test_iter=50,
+                lr_step=100, checkpoint_every=200)
+
+
+# -------------------------------------------------------------- phase 13
+def zarr_train_fixture(tmp):
+    """The recipe fixture in zarr form (the port's make_zarr_survey,
+    nested layout): 2017 three 700 x 1400 echograms (seed 41, 6 schools)
+    as one survey of 4200 pings with a STOX transects CSV of two
+    transects, 2016 two 700 x 1200 (seed 42)."""
+    import csv
+    import os
+
+    import numpy as np
+    from crimac_unet_tpu_torch.data.fixtures import make_zarr_survey
+    from crimac_unet_tpu_torch.data.zarr_reader import DataReaderZarr
+    root = tmp / "train_zarr"
+    if root.is_dir():
+        return root
+    t0 = time.perf_counter()
+    sv = make_zarr_survey(root, year=2017, n_echograms=3, H=700, W=1400,
+                          seed=41, n_schools=6, layout="nested")
+    make_zarr_survey(root, year=2016, n_echograms=2, H=700, W=1200, seed=42,
+                     n_schools=6, layout="nested")
+    times = DataReaderZarr(sv).time_vector
+    stox = Path(sv).parents[2] / "STOX"
+    stox.mkdir()
+    name = os.path.basename(sv).replace("_sv.zarr", "").replace("S", "")
+    with open(stox / f"{name}_transects.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["StartDateTime", "StopDateTime"])
+        for a, b in ((100, 1300), (1500, 4100)):
+            w.writerow([str((times[i] + np.timedelta64(500, "ms")).astype(
+                "M8[s]")) for i in (a, b)])
+    print(f"zarr train fixture written in {time.perf_counter() - t0:.1f} s")
+    return root
+
+
+def phase_zarr_train(torch, cuda_lib, tmp, card, iterations=400):
+    """Zarr training at full width: ``train_path`` on the zarr recipe
+    fixture (``ZarrSamplePool`` for training and validation,
+    ``BackgroundZarr`` drawing inside the STOX transects), then the
+    trained best.msgpack served through save_survey_predictions_zarr and
+    evaluated (evaluate_reader, mode all) on the 2016 survey."""
+    from crimac_unet_tpu_torch.data import device_pool as dp
+    from crimac_unet_tpu_torch.data.zarr_reader import get_zarr_readers
+    from crimac_unet_tpu_torch.ops import metrics
+    from crimac_unet_tpu_torch.pipeline.eval_gridded import evaluate_reader
+    from crimac_unet_tpu_torch.pipeline.predict import \
+        save_survey_predictions_zarr
+
+    root = zarr_train_fixture(tmp)
+    cfg = recipe_config(root, data_mode="zarr",
+                        path_to_zarr_files=str(root),
+                        **phase_train_settings(iterations))
+    sp, counts, ck, nums = train_path(torch, cuda_lib, tmp, card, cfg, "tz",
+                                      dp.ZarrSamplePool)
+    valid = [r.get_valid_pings().tolist() for r in sp.pool.readers]
+    check(valid == [[[100, 1300], [1500, 4100]]],
+          f"tz: STOX valid pings {valid}")
+    scfg = _serving_config(cfg)
+    (reader,) = get_zarr_readers([2016], path_to_zarr_files=str(root),
+                                 minimum_shape=256)
+    target = tmp / "tz_preds" / f"{reader.name}_pred.zarr"
+    serve_trained(
+        torch, cuda_lib, card, "tz", scfg, ck,
+        lambda r: save_survey_predictions_zarr(
+            r, reader, str(target), preload_n_pings=scfg["preload_n_pings"]),
+        lambda r: evaluate_reader(r, reader, metrics.new_histogram(r.device),
+                                  eval_mode="all",
+                                  chunk_cols=EVAL_CHUNK_COLS))
+    _check_store(str(target), *reader.shape, "tz: the trained model's store")
+    return counts, {"tz train crops/s (pooled step)": nums["crops/s"]}
+
+
+# -------------------------------------------------------------- phase 14
+def phase_meta_train(torch, cuda_lib, tmp, card, iterations=400):
+    """Metadata training at full width, early then late inject, the six
+    families: ``train_path`` on the memm recipe fixture with the metadata
+    crops computed on the card from the pools' vectors, then each trained
+    best.msgpack served (run_save_predictions) and evaluated
+    (evaluate_survey) through the metadata paths of phase 10."""
+    from crimac_unet_tpu_torch.config import META_CHANNELS_ALL
+    from crimac_unet_tpu_torch.data import device_pool as dp
+    from crimac_unet_tpu_torch.data.partition import make_partition
+    from crimac_unet_tpu_torch.pipeline.evaluate import evaluate_survey
+    from crimac_unet_tpu_torch.pipeline.save_predict import \
+        run_save_predictions
+
+    root = train_fixture(tmp)
+    paths, rates = {}, {}
+    for late in (False, True):
+        tag = "tml" if late else "tme"
+        cfg = recipe_config(root, meta_channels=META_CHANNELS_ALL,
+                            late_meta_inject=late,
+                            **phase_train_settings(iterations))
+        sp, counts, ck, nums = train_path(torch, cuda_lib, tmp, card, cfg,
+                                          tag, dp.DeviceSamplePool)
+        check(sp.pool.meta_flags == dp.META_ORDER
+              and sp.pool_val.meta_flags == dp.META_ORDER,
+              f"{tag}: pools carry meta flags {sp.pool.meta_flags}")
+        scfg = _serving_config(cfg)
+        out = tmp / f"{tag}_preds"
+        out.mkdir()
+        readers = make_partition(scfg).get_survey_readers(2016)
+        serve_trained(
+            torch, cuda_lib, card, tag, scfg, ck,
+            lambda r: run_save_predictions(scfg, r, str(out),
+                                           path_to_echograms=str(root)),
+            lambda r: evaluate_survey(r, readers, "all"))
+        _check_memm_preds(out, 2)
+        paths[tag] = counts
+        rates[f"{tag} train crops/s (pooled step)"] = nums["crops/s"]
+    return paths, rates
+
+
+RECIPES = ("baseline", "fast", "meta-early", "meta-late", "zarr")
 
 
 def run_recipe(torch, tmp, name, dtype, card):
-    """The full reference recipe or the fast preset
-    (crimac_unet_tpu/configs/config_fast_train.yaml: 3750 x 16, lr 0.01,
-    lr_step 250) on the recipe fixture through run_training."""
+    """A full recipe through run_training: the reference recipe on the
+    memm fixture (``baseline``) or its zarr form (``zarr``), the fast
+    preset (crimac_unet_tpu/configs/config_fast_train.yaml: 3750 x 16, lr
+    0.01, lr_step 250), or the fast preset with the six metadata families
+    early or late injected (scripts/meta_recipe.py: ``meta-early``,
+    ``meta-late``)."""
+    from crimac_unet_tpu_torch.config import META_CHANNELS_ALL
     from crimac_unet_tpu_torch.pipeline.segpipe import SegPipeUNet
     from crimac_unet_tpu_torch.pipeline.train import run_training
-    root = train_fixture(tmp)
     kw = {"train_dtype": dtype}
-    if name == "fast":
+    if name == "zarr":
+        root = zarr_train_fixture(tmp)
+        kw.update(data_mode="zarr", path_to_zarr_files=str(root))
+    else:
+        root = train_fixture(tmp)
+    if name != "baseline" and name != "zarr":
         kw.update(batch_size=16, lr=0.01, lr_step=250, iterations=3750,
                   test_iter=250, log_step=625)
+    if name.startswith("meta"):
+        kw.update(meta_channels=META_CHANNELS_ALL,
+                  late_meta_inject=name == "meta-late")
     cfg = recipe_config(root, **kw)
     val_s = []
-
-    def val_start(*args, **kwargs):
-        torch.cuda.synchronize()
-        val_s.append(-time.perf_counter())
-
-    def val_end(out, *args, **kwargs):
-        torch.cuda.synchronize()
-        val_s[-1] += time.perf_counter()
-    restore = _spy(SegPipeUNet, "validate_model_training",
-                   before=val_start, after=val_end)
+    restore = _timed_spy(torch, SegPipeUNet, "validate_model_training",
+                         val_s)
     log = _Scalars()
     try:
         t0 = time.perf_counter()
@@ -1910,25 +2341,30 @@ def run_recipe(torch, tmp, name, dtype, card):
         wall = time.perf_counter() - t0
     finally:
         restore()
+    check(sp.pool is not None, f"recipe {name}: the device pool is off")
     train_s = wall - sum(val_s)
     n = sp.state.step
     print(f"recipe {name} ({dtype}): best F1 {sp.best_F1_val:.4f}, "
-          f"validation F1 {log.values('test/F1_score')}, wall "
+          f"validation F1 {log.values('test/F1_score')}, validation loss "
+          f"{[round(v, 4) for v in log.values('test/loss')]}, wall "
           f"{wall / 60:.2f} min, {n} steps x batch {cfg['batch_size']}, "
           f"{train_s / n * 1e3:.2f} ms a step outside validation, "
-          f"validation {sum(val_s):.1f} s in {len(val_s)} passes [{card}]")
+          f"validation {sum(val_s):.1f} s in {len(val_s)} passes, pool "
+          f"{type(sp.pool).__name__} [{card}]")
     return sp.best_F1_val, wall
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
-                    help="comma-separated subset of phases 1-12 (11 needs "
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 15))),
+                    help="comma-separated subset of phases 1-14 (11 needs "
                          "4 and 6)")
-    ap.add_argument("--recipe", choices=("baseline", "fast"),
-                    help="also train the full reference recipe (15000 x "
-                         "batch 4) or the fast preset (3750 x 16) on the "
-                         "recipe fixture and print the best F1 and wall")
+    ap.add_argument("--recipe", choices=RECIPES,
+                    help="also train a full recipe (baseline: 15000 x "
+                         "batch 4; fast: 3750 x 16; meta-early / meta-late: "
+                         "the fast preset with the six metadata families; "
+                         "zarr: the baseline on the zarr fixture) and print "
+                         "the best F1 and wall")
     ap.add_argument("--recipe-dtype", default="bfloat16",
                     choices=("bfloat16", "float32"),
                     help="train_dtype of --recipe")
@@ -1952,6 +2388,7 @@ def main(argv=None) -> int:
         ech_dir, reader, cfg = main_setup(torch, tmp)
         if 2 in phases:
             kernels = phase_kernels(torch, cuda_lib, card, reader, cfg)
+            phase_pool_gathers(torch, tmp, card)
         if 3 in phases:
             phase_agreement(torch, tmp)
         if 4 in phases:
@@ -1992,7 +2429,17 @@ def main(argv=None) -> int:
             by_path.update(paths)
             rates.update(r)
         if 12 in phases:
-            by_path["tr"], r = phase_train(torch, cuda_lib, tmp, card)
+            by_path["tr"], r = phase_train(torch, cuda_lib, tmp, card,
+                                           TRAIN_ITERATIONS)
+            rates.update(r)
+        if 13 in phases:
+            by_path["tz"], r = phase_zarr_train(torch, cuda_lib, tmp, card,
+                                                TRAIN_ITERATIONS)
+            rates.update(r)
+        if 14 in phases:
+            paths, r = phase_meta_train(torch, cuda_lib, tmp, card,
+                                        TRAIN_ITERATIONS)
+            by_path.update(paths)
             rates.update(r)
         if args.recipe:
             run_recipe(torch, tmp, args.recipe, args.recipe_dtype, card)

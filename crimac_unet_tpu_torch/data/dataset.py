@@ -11,7 +11,9 @@ thread pool fills a bounded queue ahead of the training loop.
 Batch layout: data (B, C, wh, ww) float32 raw sv, labels (B, wh, ww) int32
 raw codes, seabed_row (B, ww) int32 patch row of seabed+pad (BIG_ROW where
 absent or outside the data); pooled: ech_idx (B,) and starts (B, 2) int32,
-plus seabed_row for validation.  Metadata channels come with ROADMAP A1b.
+plus seabed_row for validation; with metadata channels (memmap only)
+meta (B, M, wh, ww) float32 on the host-crop path, computed on the device
+from the pool's per-echogram vectors on the pooled path.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 
 from ..constants import SEABED_PAD
 from ..ops.label_ops import BIG_ROW
+from .meta_channels import crop_meta, validate_meta_channels
 
 
 def seabed_patch_row(reader, center, window) -> np.ndarray:
@@ -34,7 +37,8 @@ def seabed_patch_row(reader, center, window) -> np.ndarray:
     # ((N+1)//2 == N//2 for even N, the reference getGrid offsets)
     y0 = int(center[0]) - (wh + 1) // 2 + 1
     x0 = int(center[1]) - (ww + 1) // 2 + 1
-    n_pings = reader.shape[1]   # memmap (range, ping)
+    zarr = reader.data_format == "zarr"
+    n_pings = reader.shape[0] if zarr else reader.shape[1]
 
     out = np.full(ww, BIG_ROW, dtype=np.int32)
     lo = max(x0, 0)
@@ -44,10 +48,14 @@ def seabed_patch_row(reader, center, window) -> np.ndarray:
     sb = np.asarray(reader.get_seabed(lo, hi - lo)).astype(np.int64)
     sy0 = max(y0, 0)
     valid = np.asarray(reader.seabed_known(lo, hi - lo))
-    # memmap clamps the shifted line at the patch top (data_reader.py:
-    # 407-431): threshold = max(seabed+pad, patch_top); the zarr law of
-    # the JAX package comes with zarr training (ROADMAP A1b)
-    thresh = np.maximum(sb + SEABED_PAD, sy0)
+    if zarr:
+        # zarr pads by shifting the sliced bottom mask down
+        # (data_reader.py:841-846): threshold = max(seabed, patch_top)+pad
+        thresh = np.maximum(sb, sy0) + SEABED_PAD
+    else:
+        # memmap clamps the shifted line at the patch top
+        # (data_reader.py:407-431): threshold = max(seabed+pad, patch_top)
+        thresh = np.maximum(sb + SEABED_PAD, sy0)
     rows = np.clip(thresh - y0, -(10 ** 6), BIG_ROW)
     out[lo - x0:hi - x0] = np.where(valid, rows, BIG_ROW).astype(np.int32)
     return out
@@ -58,10 +66,12 @@ class RandomPatchDataset:
     (reference batch/dataset.py:30-113)."""
 
     def __init__(self, samplers, window_size, frequencies,
-                 sampler_probs=None, seed=None):
+                 sampler_probs=None, seed=None, meta_channels=None):
         self.samplers = samplers
         self.window_size = window_size
         self.frequencies = frequencies
+        self.meta_channels = meta_channels or None
+        validate_meta_channels(self.meta_channels)
         probs = np.asarray(sampler_probs if sampler_probs is not None
                            else np.ones(len(samplers)), dtype=float)
         self.cum_probs = np.cumsum(probs) / probs.sum()
@@ -74,10 +84,10 @@ class RandomPatchDataset:
 
     def use_pool(self, pool, with_seabed=False):
         """Switch to coordinate-only batches for a device sample pool
-        (data/device_pool.py): the host draws (sampler, center) with the
+        (``DeviceSamplePool`` or ``ZarrSamplePool``): the host draws (sampler, center) with the
         SAME rng sequence as the crop path but ships only (echogram, start)
-        int32 coordinates; crops are gathered on the device inside the
-        pooled step.  ``with_seabed`` adds the (B, ww) seabed-row strips
+        int32 coordinates; crops (and metadata crops) are gathered on the
+        device inside the pooled step.  ``with_seabed`` adds the (B, ww) seabed-row strips
         the VALIDATION label chain needs (host-computed, as on the crop
         path)."""
         self.pool = pool
@@ -95,7 +105,10 @@ class RandomPatchDataset:
         data = reader.crop_data(center, self.window_size, self.frequencies)
         labels = reader.crop_labels(center, self.window_size)
         seabed = seabed_patch_row(reader, center, self.window_size)
-        return data, labels.astype(np.int32), seabed
+        meta = (crop_meta(reader, center, self.window_size,
+                          self.meta_channels)
+                if self.meta_channels else None)
+        return data, labels.astype(np.int32), seabed, meta
 
     def batch(self, batch_size):
         if self.pool is not None:
@@ -109,9 +122,12 @@ class RandomPatchDataset:
                      for center, reader in samples])
             return out
         parts = [self.sample() for _ in range(batch_size)]
-        return {"data": np.stack([p[0] for p in parts]),
-                "labels": np.stack([p[1] for p in parts]),
-                "seabed_row": np.stack([p[2] for p in parts])}
+        out = {"data": np.stack([p[0] for p in parts]),
+               "labels": np.stack([p[1] for p in parts]),
+               "seabed_row": np.stack([p[2] for p in parts])}
+        if self.meta_channels:
+            out["meta"] = np.stack([p[3] for p in parts])
+        return out
 
 
 class BatchPrefetcher:

@@ -17,9 +17,9 @@ The objects CSV is read with the ``csv`` module (no pandas): the objects
 table is a dict of equal-length numpy columns, with the JAX reader's
 columns, validity and seabed-distance rules and its cached
 ``<name>_objects_parsed.csv`` (pandas' ``to_csv`` layout, index column
-first).  The training accessors (STOX transects, crops) and the parquet
-rasterizer are not ported yet (ROADMAP.md queue A: training; export,
-selfcheck and tooling).
+first).  The training accessors read the STOX transects CSV with the
+``csv`` module too, and crop in patch orientation with boundary fill.
+The LSSS parquet rasterizer is not ported yet (ROADMAP.md queue A4).
 """
 
 from __future__ import annotations
@@ -28,9 +28,12 @@ import csv
 import os
 import threading
 from glob import glob
+from pathlib import Path
 
 import numpy as np
 
+from ..constants import DATA_BOUNDARY_VAL, LABEL_BOUNDARY_VAL
+from ..utils.grids import crop_bounds
 from .zarrlite import ZGroup, decode_cf_time
 
 # streaming-read budget for the seabed scan (elements per read ~= 64 MB of
@@ -148,10 +151,51 @@ class DataReaderZarr:
         if os.path.isdir(self.seabed_path):
             self.seabed = _open_group(self.seabed_path)
 
+        self.valid_pings = None
         self.objects_df = None
         self._seabed_vec = None  # full-survey seabed cache (fast path)
         self._seabed_has = None
         self._seabed_scan_lock = threading.Lock()
+        # the valid-pings and objects caches: prefetch threads share a
+        # reader, and two of them must not build one cache at once
+        self._cache_lock = threading.Lock()
+
+    # ------------------------------------------------------------- indices
+    def get_ping_index(self, ping_time) -> int:
+        """Closest ping index to a datetime64
+        (reference data_reader.py:600-608)."""
+        return int(np.abs(self.time_vector - ping_time).argmin())
+
+    def get_range_index(self, rng) -> int:
+        return int(np.abs(self.range_vector - rng).argmin())
+
+    def get_valid_pings(self) -> np.ndarray:
+        """(n, 2) int32 [start, end] ping ranges of the STOX transects
+        (``<survey dir>/STOX/<survey>_transects.csv``, the survey dir two
+        levels above the store's), the full survey ``[[0, n_pings]]``
+        without the CSV (reference data_reader.py:577-598).  The CSV's
+        cells go to ``np.datetime64`` as strings, as pandas hands them
+        over."""
+        if self.valid_pings is None:
+            with self._cache_lock:
+                if self.valid_pings is None:
+                    self.valid_pings = self._read_valid_pings()
+        return self.valid_pings
+
+    def _read_valid_pings(self) -> np.ndarray:
+        parents = Path(self.path).parents
+        csv_dir = parents[1] if len(parents) > 1 else Path(self.path)
+        csv_path = os.path.join(csv_dir, "STOX",
+                                self.name.replace("S", "") + "_transects.csv")
+        if not os.path.isfile(csv_path):
+            return np.array([[0, self.shape[0]]], dtype=np.int32)
+        with open(csv_path, newline="") as f:
+            rows = list(csv.DictReader(f))
+        starts = [self.get_ping_index(np.datetime64(r["StartDateTime"]))
+                  for r in rows]
+        ends = [self.get_ping_index(np.datetime64(r["StopDateTime"]))
+                for r in rows]
+        return np.array([starts, ends], dtype=np.int32).T
 
     # -------------------------------------------------------------- slices
     def _range_slice(self, idx_range, n_range):
@@ -346,12 +390,16 @@ class DataReaderZarr:
         """Objects table ({column: numpy array}) with seabed distance +
         validity, cached to ``<name>_objects_parsed.csv``
         (reference data_reader.py:637-697)."""
-        if self.objects_df is not None:
-            return self.objects_df
+        if self.objects_df is None:
+            with self._cache_lock:
+                if self.objects_df is None:
+                    self.objects_df = self._read_objects()
+        return self.objects_df
+
+    def _read_objects(self) -> dict:
         parsed = os.path.join(self.path, self.name + "_objects_parsed.csv")
         if os.path.isfile(parsed):
-            self.objects_df = read_objects_csv(parsed, index_col=True)
-            return self.objects_df
+            return read_objects_csv(parsed, index_col=True)
         if not os.path.isfile(self.objects_df_path):
             raise FileNotFoundError(
                 f"Cannot compute objects dataframe from {self.objects_df_path}")
@@ -389,7 +437,6 @@ class DataReaderZarr:
         os.close(fd)
         write_objects_csv(tmp, df, index=True)
         os.replace(tmp, parsed)
-        self.objects_df = df
         return df
 
     def get_fish_schools(self, category="all") -> dict:
@@ -422,6 +469,40 @@ class DataReaderZarr:
                  for v in box]}
                 for cat, box in zip(df["category"],
                                     self.get_object_bounding_boxes())]
+
+    # ----------------------------------------------------------------- crop
+    def _crop_region(self, center, window):
+        """Crop bounds in (range, ping) and the part inside the survey."""
+        (y0, x0), (y1, x1) = crop_bounds(center, window)
+        n_pings, n_range = self.shape
+        return (y0, x0), (max(y0, 0), min(y1, n_range),
+                          max(x0, 0), min(x1, n_pings))
+
+    def crop_data(self, center, window, frequencies):
+        """(C, range, ping) float32 crop in patch orientation, boundary
+        fill outside the survey; NaN becomes the boundary value, +-Inf
+        the float32 extremes (``nan_to_num`` with ``nan`` only)
+        (reference batch/dataset.py:358-407)."""
+        (y0, x0), (cy0, cy1, cx0, cx1) = self._crop_region(center, window)
+        out = np.full((len(frequencies), window[0], window[1]),
+                      DATA_BOUNDARY_VAL, dtype=np.float32)
+        if cy1 > cy0 and cx1 > cx0:
+            slab = self.get_data_slice(cx0, cx1 - cx0, cy0, cy1 - cy0,
+                                       frequencies)
+            out[:, cy0 - y0:cy1 - y0, cx0 - x0:cx1 - x0] = \
+                np.nan_to_num(slab.swapaxes(1, 2), nan=DATA_BOUNDARY_VAL)
+        return out
+
+    def crop_labels(self, center, window):
+        """(range, ping) int16 label crop, boundary fill outside the
+        survey and where the labels are NaN."""
+        (y0, x0), (cy0, cy1, cx0, cx1) = self._crop_region(center, window)
+        out = np.full(tuple(window), LABEL_BOUNDARY_VAL, dtype=np.float32)
+        if cy1 > cy0 and cx1 > cx0:
+            slab = self.get_label_slice(cx0, cx1 - cx0, cy0, cy1 - cy0)
+            out[cy0 - y0:cy1 - y0, cx0 - x0:cx1 - x0] = \
+                np.nan_to_num(slab.T, nan=LABEL_BOUNDARY_VAL)
+        return out.astype(np.int16)
 
 
 def get_zarr_readers(years="all", frequencies=np.array([18, 38, 120, 200]),

@@ -9,7 +9,7 @@ factors from an explicit ``torch.Generator`` on the data's device) and its
 apply step, so tests can inject the JAX package's draws into the apply
 step.
 
-Layout: data (B, C, H, W) raw sv, labels (B, H, W).
+Layout: data (B, C, H, W) raw sv, meta (B, M, H, W), labels (B, H, W).
 """
 
 from __future__ import annotations
@@ -58,3 +58,13 @@ def augment_train(gen: torch.Generator, data, labels):
     data = add_noise(data, *draw_noise(gen, data.shape, data.device))
     return flip_x_axis(data, labels,
                        draw_flip(gen, data.shape[0], data.device))
+
+
+def augment_train_meta(gen: torch.Generator, data, meta, labels):
+    """Metadata variant: noise on the acoustic channels only, one flip
+    shared by data, meta and labels (reference add_noise.py:37-62,
+    flip_x_axis.py:26-31)."""
+    data = add_noise(data, *draw_noise(gen, data.shape, data.device))
+    flip = draw_flip(gen, data.shape[0], data.device)
+    return (_flip_where(flip, data), _flip_where(flip, meta),
+            _flip_where(flip, labels))

@@ -10,6 +10,14 @@ step runs on the device from the raw crop batch:
               forward (K2 at level 0) -> loss on ignore-collapsed labels
               + streaming PR histogram update
 
+With metadata channels (``meta_channels``) a step also takes the
+(B, M, H, W) metadata crops: the augmentation flips them with the data
+(``augment_train_meta``, noise on the acoustic channels only), the dB
+transform is the scaled [0, 1] one, and early inject concatenates them
+after the acoustic channels while late inject hands them to the model.
+The pooled steps compute them on the device from the pool's vectors
+(data/device_pool.gather_meta_crops).
+
 Hyper-parameters follow the reference: SGD momentum 0.95, lr 0.005
 halved every ``lr_step`` optimizer steps (staircase ExponentialLR,
 pipeline.py:156-157/:187-189), CE class weights [10, 300, 250]
@@ -39,7 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from ..constants import LABEL_IGNORE_VAL
-from ..data.device_pool import gather_crops
+from ..data.device_pool import gather_crops, gather_meta_crops
+from ..data.meta_channels import get_in_channels
 from ..models.unet import UNet
 from ..models.weights import (flax_params_to_torch,
                               flax_to_torch_state_dict, to_tensors,
@@ -168,24 +177,51 @@ def _test_labels(data, labels, seabed_row, overlap, threshold_freq_idx):
     return label_ops.mask_label_overlap(labels, overlap)
 
 
+def _model_input(config: dict):
+    """-> ``inputs(data, meta)``: the (NHWC input, NHWC late meta or None)
+    pair the model takes, from (B, C, H, W) data and metadata crops."""
+    use_meta = get_in_channels(config.get("meta_channels")) > 0
+    late = bool(config.get("late_meta_inject", False))
+
+    def inputs(data, meta):
+        x = data.permute(0, 2, 3, 1)
+        if not use_meta:
+            return x, None
+        m = meta.permute(0, 2, 3, 1)
+        if late:
+            return x, m
+        return torch.cat([x, m], dim=-1), None
+
+    return inputs
+
+
 def make_train_step(config: dict):
-    """-> ``train_step(state, data, labels, gen)``: data (B, C, H, W) raw
-    sv float32, labels (B, H, W) raw int32 codes, ``gen`` the
-    augmentation's device generator.  Updates ``state`` in place and
-    returns the loss (a device scalar)."""
+    """-> ``train_step(state, data, labels, gen, meta=None)``: data
+    (B, C, H, W) raw sv float32, labels (B, H, W) raw int32 codes, ``gen``
+    the augmentation's device generator, ``meta`` the (B, M, H, W) float32
+    metadata crops when the config has metadata channels.  Updates
+    ``state`` in place and returns the loss (a device scalar)."""
     loss_fn = make_loss_fn(config)
     lr_at = make_lr_schedule(config)
+    inputs = _model_input(config)
+    use_meta = get_in_channels(config.get("meta_channels")) > 0
 
-    def train_step(state: TrainState, data, labels, gen):
-        # looked up at call time: tests replace it by the identity
-        data, labels = augment.augment_train(gen, data, labels)
+    def train_step(state: TrainState, data, labels, gen, meta=None):
+        # augment looked up at call time: tests replace it by the identity
+        if use_meta:
+            data, meta, labels = augment.augment_train_meta(gen, data, meta,
+                                                            labels)
+        else:
+            data, labels = augment.augment_train(gen, data, labels)
         labels = _train_labels(data, labels, -1)
-        data, labels = data_ops.data_transform_train(data, labels)
+        data, labels = data_ops.data_transform_train(data, labels,
+                                                     scaled=use_meta)
         model, opt = state.model, state.optimizer
         model.train()
         for group in opt.param_groups:
             group["lr"] = lr_at(state.step)
-        loss = loss_fn(model(data.permute(0, 2, 3, 1)), labels)
+        x, m = inputs(data, meta)
+        loss = loss_fn(model(x, meta=m), labels)
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()
@@ -195,37 +231,60 @@ def make_train_step(config: dict):
     return train_step
 
 
+def _pool_gather(config: dict):
+    """-> ``gather(pool_data, pool_labels, ech_idx, starts, meta_vectors,
+    flags)``: the (data, labels, meta) crops on the device, meta None
+    without metadata channels."""
+    window = tuple(config["patch_size"])
+    use_meta = get_in_channels(config.get("meta_channels")) > 0
+
+    def gather(pool_data, pool_labels, ech_idx, starts, meta_vectors, flags):
+        data, labels = gather_crops(pool_data, pool_labels, ech_idx, starts,
+                                    window)
+        meta = gather_meta_crops(*meta_vectors, ech_idx, starts, window,
+                                 flags) if use_meta else None
+        return data, labels, meta
+
+    return gather
+
+
 def make_train_step_pooled(config: dict):
     """The train step over a device sample pool (data/device_pool.py):
-    ``train_step(state, pool_data, pool_labels, ech_idx, starts, gen)``
-    gathers the crops on the device, then runs :func:`make_train_step`'s
-    step."""
-    window = tuple(config["patch_size"])
+    ``train_step(state, pool_data, pool_labels, ech_idx, starts, gen,
+    meta_vectors=None, flags=())``, the pool's metadata vectors and flags
+    with metadata channels; gathers the crops (and the metadata crops) on
+    the device, then runs :func:`make_train_step`'s step."""
+    gather = _pool_gather(config)
     base = make_train_step(config)
 
-    def train_step(state, pool_data, pool_labels, ech_idx, starts, gen):
-        data, labels = gather_crops(pool_data, pool_labels, ech_idx,
-                                    starts, window)
-        return base(state, data, labels, gen)
+    def train_step(state, pool_data, pool_labels, ech_idx, starts, gen,
+                   meta_vectors=None, flags=()):
+        data, labels, meta = gather(pool_data, pool_labels, ech_idx, starts,
+                                    meta_vectors, flags)
+        return base(state, data, labels, gen, meta=meta)
 
     return train_step
 
 
 def make_eval_step(config: dict):
     """-> ``eval_step(model, hist, data, labels, seabed_row, overlap=0,
-    with_loss=True)``: the validation step on raw crops (label test
-    chain, data test chain, eval forward, loss on ignore-collapsed
-    labels, PR histogram update into ``hist`` in place).  Returns
-    ``(hist, loss)``."""
+    with_loss=True, meta=None)``: the validation step on raw crops (label
+    test chain, data test chain, eval forward, loss on ignore-collapsed
+    labels, PR histogram update into ``hist`` in place), ``meta`` the
+    metadata crops with metadata channels.  Returns ``(hist, loss)``."""
     loss_fn = make_loss_fn(config)
+    inputs = _model_input(config)
+    use_meta = get_in_channels(config.get("meta_channels")) > 0
 
     @torch.no_grad()
     def eval_step(model, hist, data, labels, seabed_row, overlap=0,
-                  with_loss=True):
+                  with_loss=True, meta=None):
         labels_t = _test_labels(data, labels, seabed_row, overlap, -1)
-        data_t, labels_t = data_ops.data_transform_test(data, labels_t)
+        data_t, labels_t = data_ops.data_transform_test(data, labels_t,
+                                                        scaled=use_meta)
         model.eval()
-        logits = model(data_t.permute(0, 2, 3, 1))
+        x, m = inputs(data_t, meta)
+        logits = model(x, meta=m)
         probs = torch.softmax(logits, dim=-1)
         loss = torch.zeros((), device=logits.device)
         if with_loss:
@@ -239,16 +298,18 @@ def make_eval_step(config: dict):
 def make_eval_step_pooled(config: dict):
     """The validation step over a device sample pool: ``eval_step(model,
     hist, pool_data, pool_labels, ech_idx, starts, seabed_row, overlap=0,
-    with_loss=True)``; the seabed rows stay host-computed."""
-    window = tuple(config["patch_size"])
+    with_loss=True, meta_vectors=None, flags=())``; the seabed rows stay
+    host-computed."""
+    gather = _pool_gather(config)
     base = make_eval_step(config)
 
     def eval_step(model, hist, pool_data, pool_labels, ech_idx, starts,
-                  seabed_row, overlap=0, with_loss=True):
-        data, labels = gather_crops(pool_data, pool_labels, ech_idx,
-                                    starts, window)
+                  seabed_row, overlap=0, with_loss=True, meta_vectors=None,
+                  flags=()):
+        data, labels, meta = gather(pool_data, pool_labels, ech_idx, starts,
+                                    meta_vectors, flags)
         return base(model, hist, data, labels, seabed_row, overlap=overlap,
-                    with_loss=with_loss)
+                    with_loss=with_loss, meta=meta)
 
     return eval_step
 

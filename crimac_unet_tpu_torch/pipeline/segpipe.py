@@ -21,6 +21,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..data.device_pool import META_ORDER
 from ..models.unet import build_unet, init_train_
 from ..models.weights import (load_checkpoint, read_msgpack_checkpoint,
                               to_tensors)
@@ -60,15 +61,41 @@ class SegPipeUNet:
         self.pool_val = None
         self.generator = None
 
+    def _check_pool_meta(self, pool):
+        """A metadata config needs a pool built with the same
+        ``meta_channels`` (its per-echogram vectors on the device): a
+        missing or different flag set would otherwise fail at step time
+        or train silently on the wrong features."""
+        cfg = self.config.get("meta_channels") or {}
+        cfg_flags = tuple(k for k in META_ORDER if cfg.get(k))
+        pool_flags = tuple(pool.meta_flags)
+        if cfg_flags and not pool_flags:
+            raise ValueError(
+                "config enables meta_channels but the sample pool was "
+                "built without them; pass meta_channels to the pool "
+                "constructor (train.maybe_build_pool does this)")
+        if pool_flags and not cfg_flags:
+            raise ValueError(
+                "the sample pool carries meta_channels but the config "
+                "does not enable them; rebuild the pool without "
+                "meta_channels (or enable them in the config)")
+        if cfg_flags != pool_flags:
+            raise ValueError(
+                f"meta_channels mismatch: config enables {cfg_flags} but "
+                f"the sample pool was built with {pool_flags}; rebuild "
+                "the pool with the config's meta_channels")
+
     def attach_pool(self, pool):
         """Gather training crops on the device from ``pool``
         (data/device_pool.py); batches become (echogram, start)
         coordinates."""
+        self._check_pool_meta(pool)
         self.pool = pool
         return self
 
     def attach_pool_val(self, pool):
         """Gather VALIDATION crops on the device from ``pool``."""
+        self._check_pool_meta(pool)
         self.pool_val = pool
         return self
 
@@ -122,15 +149,17 @@ class SegPipeUNet:
         """One update from a device batch (crops, or pool coordinates
         with ``ech_idx``); returns the loss as a device scalar."""
         if "ech_idx" in batch:
-            if self.pool is None:
+            pool = self.pool
+            if pool is None:
                 raise ValueError("pooled batch (has 'ech_idx') but "
                                  "attach_pool() was never called on this "
                                  "SegPipeUNet")
             return self._train_step_pooled(
-                self.state, self.pool.data, self.pool.labels,
-                batch["ech_idx"], batch["starts"], self.generator)
+                self.state, pool.data, pool.labels, batch["ech_idx"],
+                batch["starts"], self.generator,
+                meta_vectors=pool.meta_vectors, flags=pool.meta_flags)
         return self._train_step(self.state, batch["data"], batch["labels"],
-                                self.generator)
+                                self.generator, meta=batch.get("meta"))
 
     def train_model(self, train_batches, make_test_batches, logger=None,
                     progress=True):
@@ -225,20 +254,21 @@ class SegPipeUNet:
         px = int(np.prod(self.config["patch_size"]))
         for batch in device_prefetch(test_batches, self.device, depth=2):
             if "ech_idx" in batch:
-                if self.pool_val is None:
+                pool = self.pool_val
+                if pool is None:
                     raise ValueError(
                         "pooled validation batch (has 'ech_idx') but "
                         "attach_pool_val() was never called on this "
                         "SegPipeUNet")
                 hist, loss = self._eval_step_pooled(
-                    self.model, hist, self.pool_val.data,
-                    self.pool_val.labels, batch["ech_idx"], batch["starts"],
-                    batch["seabed_row"])
+                    self.model, hist, pool.data, pool.labels,
+                    batch["ech_idx"], batch["starts"], batch["seabed_row"],
+                    meta_vectors=pool.meta_vectors, flags=pool.meta_flags)
                 acc_px += len(batch["ech_idx"]) * px
             else:
                 hist, loss = self._eval_step(
                     self.model, hist, batch["data"], batch["labels"],
-                    batch["seabed_row"])
+                    batch["seabed_row"], meta=batch.get("meta"))
                 acc_px += batch["labels"].numel()
             losses.append(loss)
             if acc_px > 2 ** 30:

@@ -9,9 +9,10 @@ merge, experiment dirs ``saved_models/<exp>/<ts>`` and
 ``tensorboard_logs/<exp>/<ts>``, training with periodic best-F1
 validation checkpointing (``best.msgpack`` / ``last.msgpack``, readable
 and resumable by either package).  Runs on ``cuda`` unless the config or
-``--device`` names another device.  This slice trains memmap surveys
-without metadata channels (``config_baseline.yaml``'s path); zarr and
-metadata training raise ``NotImplementedError`` naming ROADMAP A1b.
+``--device`` names another device.  Trains memmap and zarr surveys
+(``data_mode``), with metadata channels early or late injected on memmap
+surveys (``meta_channels``, ``late_meta_inject``); one device
+(``mesh_devices`` above 1 raises, ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -28,22 +29,24 @@ from ..config import (config_args_to_markdown, get_argparse_parser,
 from ..data import device_pool as dp
 from ..data.dataset import BatchPrefetcher, RandomPatchDataset
 from ..data.meta_channels import get_in_channels
-from ..data.partition import ZARR_TRAINING, make_partition
+from ..data.partition import make_partition
 from ..utils.general import fix_seeds, get_datetime_str
 from .runner import resolve_device
-from .segpipe import SegPipeUNet
-
-META_TRAINING = ("training with metadata channels (meta_channels, "
-                 "late_meta_inject) is ROADMAP.md queue A, A1b")
+from .segpipe import MULTI_DEVICE, SegPipeUNet
 
 
 def check_trainable(config) -> None:
-    """Raise for the training configurations this slice does not run."""
-    if config.get("data_mode") == "zarr":
-        raise NotImplementedError(ZARR_TRAINING)
-    if get_in_channels(config.get("meta_channels")) > 0 or \
-            config.get("late_meta_inject"):
-        raise NotImplementedError(META_TRAINING)
+    """Raise before any survey is read for a configuration the port
+    does not train (more than one device, ROADMAP A3)."""
+    if int(config.get("mesh_devices", 0) or 0) > 1:
+        raise NotImplementedError(MULTI_DEVICE)
+
+
+def enabled_meta(config):
+    """The config's ``meta_channels`` when any family is on, else None
+    (an all-off flag dict trains as no metadata, as the steps do)."""
+    mc = config.get("meta_channels")
+    return mc if get_in_channels(mc) > 0 else None
 
 
 def make_datasets(config, data_obj):
@@ -53,32 +56,49 @@ def make_datasets(config, data_obj):
     readers_train, readers_test = data_obj.partition_data_train()
     samplers_train, samplers_test, probs = data_obj.get_samplers_train(
         readers_train, readers_test)
+    meta = enabled_meta(config)
 
     def train_factory(seed_offset=0):
         return RandomPatchDataset(samplers_train, config["patch_size"],
                                   sorted(config["frequencies"]),
-                                  sampler_probs=probs,
+                                  sampler_probs=probs, meta_channels=meta,
                                   seed=config["random_seed"] + seed_offset)
 
     def test_factory(seed_offset=0):
         return RandomPatchDataset(samplers_test, config["patch_size"],
                                   sorted(config["frequencies"]),
-                                  sampler_probs=probs,
+                                  sampler_probs=probs, meta_channels=meta,
                                   seed=config["random_seed"] + 10_000
                                   + seed_offset)
     return train_factory, test_factory, readers_train, readers_test
 
 
 def maybe_build_pool(config, readers, device, budget_mb=None, role="train"):
-    """Device sample pool when enabled and within the budget.
+    """Device sample pool when enabled and within the budget:
+    ``DeviceSamplePool`` for memmap readers (with the metadata vectors
+    when ``meta_channels`` are on), ``ZarrSamplePool`` for zarr readers.
 
     ``use_device_pool``: ``"auto"`` (default) pools whenever the readers
     fit ``device_pool_budget_mb`` (default 2048); ``True`` forces pooling
-    (raises if over budget); ``False`` keeps host crops.  ``role``:
-    'train' (forced mode raises when over budget) or 'validation'
-    (always falls back to host crops)."""
+    (raises if over budget or impossible); ``False`` keeps host crops.
+    ``role``: 'train' (forced mode raises) or 'validation' (always falls
+    back to host crops).  Metadata channels on zarr surveys cannot pool
+    (metadata is memmap-only): they fall back to host crops, where
+    ``crop_meta`` raises the memmap-only ``ValueError``."""
     mode = config.get("use_device_pool", "auto")
     if not mode or not readers:
+        return None
+    meta = enabled_meta(config)
+    zarr = readers[0].data_format != "memmap"
+    if meta and zarr:
+        if mode is True and role == "train":
+            raise ValueError(
+                "use_device_pool: true with meta_channels on zarr surveys "
+                "cannot pool (metadata channels are memmap-only, reference "
+                "dataset.py:245-252); set use_device_pool: auto/false or "
+                "drop meta_channels")
+        print(f"{role} device pool disabled: meta_channels on zarr "
+              "surveys use host crops (metadata is memmap-only)")
         return None
     window = tuple(config["patch_size"])
     freqs = sorted(config["frequencies"])
@@ -96,7 +116,8 @@ def maybe_build_pool(config, readers, device, budget_mb=None, role="train"):
             f"use_device_pool: true but the pool needs {mb:.0f} MB "
             f"> device_pool_budget_mb={budget_mb}; raise the budget, "
             "reduce the survey set, or set use_device_pool: auto/false")
-    return dp.DeviceSamplePool(readers, freqs, window, device)
+    cls = dp.ZarrSamplePool if zarr else dp.DeviceSamplePool
+    return cls(readers, freqs, window, device, meta_channels=meta)
 
 
 def run_training(config, checkpoint_dir, logger=None, progress=True):

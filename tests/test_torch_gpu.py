@@ -360,3 +360,58 @@ def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
         ulp = float(torch.max(torch.abs(p0[name])) * 2 ** -23)
         assert float((up - ref).abs().max()) <= \
             5e-2 * float(ref.abs().max()) + ulp, name
+
+
+@pytest.mark.gpu
+def test_zarr_pool_on_card_equals_cpu(cuda, tmp_path):
+    """ZarrSamplePool built on the card (several chunks and a shifted
+    tail) holds the CPU pool's canvases, and its gather, crops across
+    the survey's edges included, equals the host crops."""
+    from crimac_unet_tpu_torch.data.device_pool import (ZarrSamplePool,
+                                                        gather_crops)
+    from crimac_unet_tpu_torch.data.fixtures import make_zarr_survey
+    from crimac_unet_tpu_torch.data.zarr_reader import DataReaderZarr
+    reader = DataReaderZarr(make_zarr_survey(
+        tmp_path, year=2017, n_echograms=2, H=100, W=200, seed=7))
+    freqs = [18, 38, 120, 200]
+    cpu = ZarrSamplePool([reader], freqs, WIN, "cpu", chunk_pings=96)
+    card = ZarrSamplePool([reader], freqs, WIN, cuda, chunk_pings=96)
+    assert torch.equal(card.data.cpu(), cpu.data)
+    assert torch.equal(card.labels.cpu(), cpu.labels)
+    centers = [(0, 0), (-10, 5), (99, 399), (120, 410), (50, 200),
+               (30, -20)]
+    idx, starts = (torch.from_numpy(a).to(cuda) for a in
+                   card.prepare_batch([(reader, c) for c in centers]))
+    d, lab = gather_crops(card.data, card.labels, idx, starts, WIN)
+    for b, c in enumerate(centers):
+        assert torch.equal(d[b].cpu(), torch.from_numpy(
+            reader.crop_data(c, WIN, freqs)))
+        assert torch.equal(lab[b].cpu(), torch.from_numpy(
+            reader.crop_labels(c, WIN).astype(np.int32)))
+
+
+@pytest.mark.gpu
+def test_meta_gather_on_card_matches_cpu(cuda):
+    """gather_meta_crops on the card against the CPU on the same vectors,
+    zero seabed rows included: rtol 1e-5, atol 1e-6, Inf and NaN in the
+    same places."""
+    from crimac_unet_tpu_torch.data.device_pool import (META_ORDER,
+                                                        gather_meta_crops)
+    rng = np.random.RandomState(7)
+    seabed = rng.randint(0, 60, (3, 90)).astype(np.float32)
+    seabed[:, ::7] = 0.0
+    vec = [torch.from_numpy(a) for a in (
+        rng.rand(3, 90).astype(np.float32), rng.rand(3, 90).astype(
+            np.float32), seabed, rng.rand(3).astype(np.float32),
+        np.array([90, 70, 40], np.int32))]
+    idx = torch.from_numpy(rng.randint(0, 3, 12).astype(np.int32))
+    starts = torch.from_numpy(np.stack(
+        [rng.randint(-10, 120, 12), rng.randint(-10, 150, 12)],
+        axis=1).astype(np.int32))
+    want = gather_meta_crops(*vec, idx, starts, WIN, META_ORDER)
+    got = gather_meta_crops(*[v.to(cuda) for v in vec], idx.to(cuda),
+                            starts.to(cuda), WIN, META_ORDER).cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-6)

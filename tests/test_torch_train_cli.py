@@ -4,9 +4,12 @@
 start_filts 8, patch 64) on synthetic memmap surveys: best and last
 checkpoints with their sidecars, resume continuing the step count, the
 overwrite protection, the device pool on and off giving the same
-training, and the configurations this slice does not train raising
-``NotImplementedError`` naming ROADMAP A1b or A3.  The JAX package loads
-the port's ``best.msgpack`` for serving.
+training.  Zarr surveys (pooled and from host crops, the same training)
+and metadata channels (early and late inject, pooled and from host
+crops) at depth 2, start_filts 4, patch 32.  What the port refuses:
+metadata on zarr surveys (``ValueError``, memmap-only) and more than one
+device (``NotImplementedError`` naming ROADMAP A3).  The JAX package
+loads the port's ``best.msgpack`` for serving.
 """
 
 import json
@@ -18,9 +21,20 @@ import torch
 from crimac_unet_tpu.pipeline import engine as jax_engine
 from crimac_unet_tpu_torch.config import (META_CHANNELS_ALL,
                                          parse_config_options)
-from crimac_unet_tpu_torch.data.fixtures import make_survey_dir
+from crimac_unet_tpu_torch.data.fixtures import (make_survey_dir,
+                                                 make_zarr_survey)
 from crimac_unet_tpu_torch.pipeline import train
 from crimac_unet_tpu_torch.pipeline.segpipe import SegPipeUNet
+
+
+@pytest.fixture(scope="module")
+def zarr_root(tmp_path_factory):
+    root = tmp_path_factory.mktemp("train_cli_zarr")
+    make_zarr_survey(root, year=2017, n_echograms=2, H=100, W=200, seed=41,
+                     n_schools=4, layout="nested")
+    make_zarr_survey(root, year=2016, n_echograms=1, H=100, W=200, seed=42,
+                     n_schools=4, layout="nested")
+    return root
 
 
 @pytest.fixture(scope="module")
@@ -108,14 +122,66 @@ def test_train_cli_main(survey, tmp_path, monkeypatch):
                                                "last.msgpack"}
 
 
-@pytest.mark.parametrize("change,item", [
-    ({"data_mode": "zarr"}, "A1b"),
-    ({"meta_channels": META_CHANNELS_ALL}, "A1b"),
-    ({"late_meta_inject": True}, "A1b"),
-    ({"mesh_devices": 2}, "A3")])
-def test_untrained_configs_raise(survey, tmp_path, change, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train.run_training(_cfg(survey, **change), tmp_path / "ck",
+def _small(**kw):
+    return _cfg(None, **dict({"patch_size": [32, 32], "depth": 2,
+                              "start_filts": 4, "batch_size": 2,
+                              "iterations": 4, "log_step": 2, "lr_step": 2,
+                              "checkpoint_every": 0, "num_workers": 1},
+                             **kw))
+
+
+def test_zarr_training_pool_and_host_crops_train_alike(zarr_root, tmp_path):
+    """Zarr surveys: ZarrSamplePool for train and validation, or host
+    crops; the same draws and crops, so the same weights."""
+    nets = []
+    for mode in (True, False):
+        ck = tmp_path / f"ck_{mode}"
+        sp = train.run_training(
+            _small(data_mode="zarr", path_to_zarr_files=str(zarr_root),
+                   use_device_pool=mode), ck, progress=False)
+        assert sp.state.step == 4
+        assert (type(sp.pool).__name__ if mode else sp.pool) == \
+            ("ZarrSamplePool" if mode else None)
+        assert (sp.pool_val is not None) == mode
+        assert {p.name for p in ck.iterdir()} >= {"best.msgpack",
+                                                 "last.msgpack"}
+        nets.append(sp.model.state_dict())
+    for k in nets[0]:
+        assert torch.equal(nets[0][k], nets[1][k]), k
+
+
+@pytest.mark.parametrize("late", [False, True])
+@pytest.mark.parametrize("pooled", [True, False])
+def test_meta_training_runs(survey, tmp_path, late, pooled):
+    log = _Logger()
+    ck = tmp_path / "ck"
+    sp = train.run_training(
+        _small(path_to_echograms=str(survey),
+               meta_channels=META_CHANNELS_ALL, late_meta_inject=late,
+               use_device_pool=pooled), ck, logger=log, progress=False)
+    assert sp.state.step == 4
+    assert (sp.pool is not None) == pooled
+    if pooled:
+        assert sp.pool.meta_flags == sp.pool_val.meta_flags and \
+            len(sp.pool.meta_flags) == 6
+    losses = [v for t, v, _ in log.rows if t == "train/loss"]
+    assert len(losses) == 4 and np.all(np.isfinite(losses))
+    payload = jax_engine.load_checkpoint(ck / "best.msgpack")
+    assert ("meta_mlp" in payload["params"]) == late
+    assert payload["params"]["down0"]["unit1"]["conv"]["kernel"].shape[2] \
+        == (4 if late else 11)
+
+
+@pytest.mark.parametrize("change,exc,match", [
+    ({"data_mode": "zarr", "meta_channels": META_CHANNELS_ALL,
+      "use_device_pool": "auto"}, ValueError, "memmap-only"),
+    ({"data_mode": "zarr", "meta_channels": META_CHANNELS_ALL,
+      "use_device_pool": True}, ValueError, "cannot pool"),
+    ({"mesh_devices": 2}, NotImplementedError, "A3")])
+def test_untrained_configs_raise(zarr_root, tmp_path, change, exc, match):
+    with pytest.raises(exc, match=match):
+        train.run_training(_small(path_to_zarr_files=str(zarr_root),
+                                  **change), tmp_path / "ck",
                            progress=False)
 
 
