@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 1,2     # a subset (debugging)
     python3 chip_smoke.py --phases 1,12 --recipe baseline   # + a recipe
     python3 chip_smoke.py --phases 1 --recipe meta-early
+    python3 chip_smoke.py --phases 1,15    # the export from random weights
 
 Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit; imports
 nothing of JAX or of the JAX package.  Phases, in order; any failure
@@ -27,7 +28,9 @@ raises and the script exits nonzero without its result line:
    first chunk's whole grid (N = 1; uint8, bfloat16 and float32 slabs,
    scaled and not, shipped short of the grid in rows and columns), K3
    at (1, H16, W16, 64); K4 also at the train step's mask shapes
-   (4, 256, 256) and (16, 256, 256); then the sample pools' gathers at
+   (4, 256, 256) and (16, 256, 256); each kernel called as its
+   ``torch.ops.crimac.*`` operator, as an exported graph calls it, held
+   to its wrapper and its plain version; then the sample pools' gathers at
    the training batch (4, 256, 256): ``ZarrSamplePool`` on the phase-13
    survey bit-equal to the host zarr crops (corners and every edge), and
    ``gather_meta_crops`` on the phase-12 survey within rtol 1e-5, atol
@@ -97,7 +100,8 @@ raises and the script exits nonzero without its result line:
     best.msgpack served and evaluated (BatchNorm folded) on the 2016
     survey, and scored there by school-detection evaluation (the
     school_eval CLI's defaults);
-13. zarr training at full width, as phase 12 on the recipe fixture in
+13. zarr training at full width, as phase 12 (cut to 200 steps and one
+    validation, as is phase 14) on the recipe fixture in
     zarr form (one nested 2017 survey of 4200 pings with a STOX transects
     CSV, 2016 of 2400 pings): ``ZarrSamplePool`` for training and
     validation, the same checks, resume and step timing, and the trained
@@ -107,12 +111,33 @@ raises and the script exits nonzero without its result line:
     families of config_meta_train.yaml, as phase 12 with the metadata
     crops computed on the card from the pools' vectors; each trained
     model served and evaluated through the metadata paths of phase 10;
+15. the serving export at full width (``pipeline/export.py``): phase 12's
+    trained best.msgpack (or, without phase 12, seeded random weights
+    written to a msgpack) exported on the card through
+    ``export_checkpoint``, saved, loaded back on cuda and served — the
+    patch artifact (float32 raw sv, symbolic batch, BatchNorm folded) on
+    32 patches of the phase-4 survey with NaN/+-Inf seeded, against the
+    eager serving forward (identical, or within 2 float16 ulp) and, on
+    the windows of a zarr chunk, against
+    ``GriddedRunner._predict_patches`` (atol 2e-7); the fold_bn false
+    artifact (K2); the serving preset's slab artifact (uint8 in and out)
+    on chunks (1, 1120, 1120) and (2, 512, 768), refusing an unaligned
+    one; a late-inject metadata artifact; an artifact exported on the
+    CPU and loaded on cuda, equal to the card-exported one; K1 = K3 = 1
+    per artifact call; the artifact and the eager forward timed with
+    ``utils.timing.burst_time`` at (32, 256, 256, 4) with their MFU
+    against the H100's bf16 peak; ``python -m
+    crimac_unet_tpu_torch.selfcheck`` in a subprocess (K1 and K3
+    counted); one ``save_predict`` CLI run under ``CRIMAC_PROFILE_DIR``
+    whose trace ``device_op_table`` reads back, naming K1 and K3;
 
 and then one JSON line naming every kernel with its phase-2 numbers
 (slab geometry included), its launches on the main path that runs it
 (K1-K3 phase 4, K4 phase 5) and its launches on every path
 (``launches_by_path``; ``tr``, ``tz``, ``tme`` and ``tml`` are the
-training runs of phases 12-14), then the last line ``{"ok": true,
+training runs of phases 12-14, ``ex``, ``exu``, ``es`` and ``em`` the
+patch, unfolded, slab and metadata artifacts of phase 15), then the last
+line ``{"ok": true,
 "device": {...}}``.  ``--recipe baseline|fast|meta-early|meta-late|zarr``
 trains a full recipe after the selected phases (``run_recipe``) and
 prints its best F1 and wall.
@@ -152,7 +177,9 @@ KERNELS = {
         replaces="crimac_unet_tpu/ops/pallas_morphology.py:60"),
 }
 EVAL_CHUNK_COLS = 8           # evaluate_reader's column group
-TRAIN_ITERATIONS = 400        # phases 12-14: steps of each training path
+TRAIN_ITERATIONS = 400        # phase 12: steps of the memm training path
+TRAIN_ITERATIONS_13_14 = 200  # phases 13-14 (one validation): the time
+                              # phase 15 needs comes from here
 
 
 class SmokeFailure(RuntimeError):
@@ -470,10 +497,49 @@ def phase_kernels(torch, cuda_lib, card, reader, cfg):
               f"{rt['plain_ms']:.4f} ms, F.max_pool2d "
               f"{rt['library_ms']:.4f} ms, bound {bt:.4f} ms ({byt}) "
               f"[{card}]")
+    ops_namespace_check(torch, main_args, x, card)
     results["binary_closing"] = phase_closing(torch, card, reader, cfg)
     phase_kernels_slab(torch, card, cfg, slabs, geom, border, per_elem,
                        results)
     return results
+
+
+def ops_namespace_check(torch, k1_args, x, card):
+    """Each kernel called as its ``crimac::`` operator, as an exported
+    graph calls it: equal to its wrapper's result (the same launch) and
+    held to its plain version (K1 within one ulp, the others bit-equal)
+    at the main path's shapes."""
+    from crimac_unet_tpu_torch.ops.closing import (binary_closing,
+                                                   binary_closing_reference)
+    from crimac_unet_tpu_torch.ops.gather_db import (gather_db,
+                                                     gather_db_reference)
+    from crimac_unet_tpu_torch.ops.pool import (maxpool2x2_reference,
+                                                relu_pool_skip_reference)
+    ops = torch.ops.crimac
+    s, y0, x0, win, border, scaled, odt = k1_args
+    got = ops.gather_db(s, y0, x0, win[0], win[1], [int(v) for v in border],
+                        scaled, odt)
+    check(equal_nan(torch, got, gather_db(*k1_args)),
+          "crimac::gather_db != the gather_db wrapper")
+    err, ok = max_ulp_err(torch, got, gather_db_reference(*k1_args))
+    check(ok, f"crimac::gather_db off its plain version by {err}")
+    check(equal_nan(torch, ops.maxpool2x2(x), maxpool2x2_reference(x)),
+          "crimac::maxpool2x2 != plain")
+    for g, w in zip(ops.relu_pool_skip(x), relu_pool_skip_reference(x)):
+        check(equal_nan(torch, g, w), "crimac::relu_pool_skip != plain")
+    gen = torch.Generator(device=x.device).manual_seed(SEED)
+    mask = torch.rand((24, 256, 256), device=x.device, generator=gen) < 0.3
+    clip = torch.zeros_like(mask)
+    clip[:, 20:230, 30:240] = True
+    closed = ops.binary_closing(mask, clip)
+    check(torch.equal(closed, binary_closing(mask, clip))
+          and torch.equal(closed, binary_closing_reference(mask, clip)),
+          "crimac::binary_closing != plain")
+    torch.cuda.synchronize()
+    print(f"torch.ops.crimac.*: gather_db {tuple(got.shape)} within one ulp "
+          f"(max abs err {err}), maxpool2x2 / relu_pool_skip "
+          f"{tuple(x.shape)} {x.dtype} and binary_closing (24, 256, 256) "
+          f"bit-equal to their plain versions [{card}]")
 
 
 def phase_kernels_slab(torch, card, cfg, slabs, geom, border, per_elem,
@@ -2303,6 +2369,306 @@ def phase_meta_train(torch, cuda_lib, tmp, card, iterations=400):
     return paths, rates
 
 
+# -------------------------------------------------------------- phase 15
+def _export_patches(reader, n, rng):
+    """``n`` raw (256, 256, 4) float32 windows of the phase-4 survey at
+    seeded positions, with NaN and +-Inf written in."""
+    import numpy as np
+    maps = reader.data_memmaps()
+    H, W = reader.shape
+    ys = rng.randint(0, H - 256 + 1, n)
+    xs = rng.randint(0, W - 256 + 1, n)
+    x = np.stack([np.stack([m[y:y + 256, c:c + 256] for m in maps], -1)
+                  for y, c in zip(ys, xs)]).astype(np.float32)
+    flat = x.reshape(-1)
+    idx = rng.choice(flat.size, 96, replace=False)
+    flat[idx[:32]] = np.nan
+    flat[idx[32:64]] = np.inf
+    flat[idx[64:]] = -np.inf
+    return x
+
+
+def _same_or_ulp16(torch, got, want, n=2):
+    """('identical' | 'within n float16 ulp' | None): probabilities of two
+    forwards of the same graph; cuDNN may pick other algorithms for the
+    same convolution, which changes the last bits."""
+    if torch.equal(got, want):
+        return "identical"
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want)[1] - 11)
+    if bool(torch.all((got - want).abs() <= n * ulp)):
+        return f"within {n} float16 ulp"
+    return None
+
+
+def phase_export(torch, cuda_lib, tmp, ech_dir, reader, zreader, cfg, card):
+    """The serving export at full width: artifacts of the flagship U-Net
+    (phase 12's trained best.msgpack, or seeded random weights written
+    to a msgpack) exported on the card through ``export_checkpoint``,
+    saved, loaded back and served — patch (float32 raw sv, symbolic
+    batch, BatchNorm folded and not), the serving preset's slab (uint8
+    in and out) and late-inject metadata — each held to the eager
+    serving forward, launch-counted per call, the patch artifact also to
+    ``GriddedRunner._predict_patches`` and to a CPU-exported artifact
+    loaded on the card; then the artifact and the eager forward timed
+    with ``burst_time`` (MFU against the card's peak), the selfcheck CLI,
+    and one ``save_predict`` CLI run under ``CRIMAC_PROFILE_DIR`` read
+    back with ``device_op_table``."""
+    import json
+    import os
+
+    import numpy as np
+    from crimac_unet_tpu_torch.config import META_CHANNELS_ALL, SERVING_PRESET
+    from crimac_unet_tpu_torch.models.unet import build_unet, init_random_
+    from crimac_unet_tpu_torch.models.weights import (
+        load_checkpoint, torch_to_flax_variables)
+    from crimac_unet_tpu_torch.ops.patches import make_grid_starts
+    from crimac_unet_tpu_torch.ops.stitch import stitch_patches
+    from crimac_unet_tpu_torch.pipeline import export as E
+    from crimac_unet_tpu_torch.pipeline.infer_common import _quantize_db_u8
+    from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
+    from crimac_unet_tpu_torch.utils import flax_msgpack
+    from crimac_unet_tpu_torch.utils.flops import (device_peak_flops, mfu,
+                                                   unet_forward_flops)
+    from crimac_unet_tpu_torch.utils.profiling import device_op_table
+    from crimac_unet_tpu_torch.utils.timing import burst_time
+
+    dev = torch.device("cuda")
+    art = tmp / "export"
+    art.mkdir()
+    ck = tmp / "train_ck_tr" / "best.msgpack"
+    if ck.is_file():
+        source = "phase 12's trained best.msgpack"
+    else:
+        ck = art / "random.msgpack"
+        sd = init_random_(build_unet(cfg), torch.Generator().manual_seed(
+            SEED)).state_dict()
+        ck.write_bytes(flax_msgpack.packb(torch_to_flax_variables(sd)))
+        source = "seeded random weights written to a msgpack"
+    sd = load_checkpoint(ck)
+    ecfg = dict(cfg, data_mode="zarr", transfer_dtype="float32",
+                output_dtype="float16")
+    by_path = {}
+
+    def counted(fn, *args):
+        cuda_lib.reset_launches()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, dict(cuda_lib.launches)
+
+    def expect(counts, label, **want):
+        full = dict.fromkeys(KERNELS, 0)
+        full.update(want)
+        check(counts == full, f"{label}: launches {counts}, not {full}")
+
+    def export(name, c, mode="patch", device="cuda"):
+        t = time.perf_counter()
+        E.export_checkpoint(ck, c, art / name, device=device, mode=mode)
+        wall = time.perf_counter() - t
+        t = time.perf_counter()
+        predict = E.load_predictor(art / name)
+        return predict, wall, time.perf_counter() - t, \
+            (art / name).stat().st_size
+
+    # the patch artifact: float32 raw sv, symbolic batch, BN folded
+    predict, wall, load_s, size = export("patch.pt2", ecfg)
+    print(f"export (patch, {source}): exported on the card in {wall:.2f} s, "
+          f"{size} bytes ({size / 1e6:.1f} MB), loaded on cuda in "
+          f"{load_s:.2f} s [{card}]")
+    live = E.make_serving_forward(build_unet(ecfg), sd, ecfg)
+    x = torch.from_numpy(_export_patches(
+        reader, 32, np.random.RandomState(SEED))).to(dev)
+    got, counts = counted(predict, x)
+    expect(counts, "patch artifact", gather_db=1, relu_pool_skip=1)
+    by_path["ex"] = counts
+    with torch.no_grad():
+        want = live(x)
+    check(got.shape == (32, 256, 256, 3) and bool(torch.isfinite(got).all()),
+          f"patch artifact: {tuple(got.shape)}, finite "
+          f"{bool(torch.isfinite(got).all())}")
+    same = _same_or_ulp16(torch, got, want)
+    check(same is not None, f"patch artifact vs eager serving forward: max "
+                            f"abs diff {float((got - want).abs().max())}")
+    print(f"export: patch artifact on 32 patches of the phase-4 survey "
+          f"(NaN/+-Inf seeded): {same} to the eager serving forward; "
+          f"launches a call {counts} [{card}]")
+
+    # the same windows of a zarr chunk through the live runner
+    runner = GriddedRunner(build_unet(ecfg), sd, ecfg)
+    sh, sw = runner.stride
+    o = runner.overlap
+    R = C = 5
+    Hp, Wp = R * sh + 2 * o, C * sw + 2 * o
+    data = zreader.get_data_slice(0, Wp, 0, Hp).transpose(2, 1, 0)
+    slab = np.zeros((Hp, Wp, data.shape[2]), np.float32)
+    slab[:data.shape[0], :data.shape[1]] = data
+    y0s, x0s = make_grid_starts(R, C, sh, sw, o, o, o)
+    y0p, x0p = runner.grid_starts(y0s, x0s)
+    N = len(y0s)
+    want = runner._predict_patches(torch.from_numpy(slab).to(dev), y0p, x0p,
+                                   N, None, R, C)
+    B, _, nb = runner._sub_batch_shape(N)
+    wins = torch.from_numpy(np.stack(
+        [slab[y:y + 256, c:c + 256] for y, c in
+         zip(y0p.cpu().numpy(), x0p.cpu().numpy())])).to(dev)
+    probs = torch.cat([predict(wins[k * B:(k + 1) * B]) for k in range(nb)])
+    got_r = stitch_patches(probs[:N, ..., 1:3], R, C, o)
+    err = float((got_r - want).abs().max())
+    check(err <= 2e-7, f"patch artifact vs GriddedRunner._predict_patches: "
+                       f"max abs diff {err} > 2e-7")
+    print(f"export: patch artifact on the {N} windows of the first "
+          f"{Wp}-ping zarr chunk in {nb} call(s) of {B}, stitched: max abs "
+          f"diff {err} to GriddedRunner._predict_patches (atol 2e-7) "
+          f"[{card}]")
+
+    # BatchNorm unfolded: K2 in place of K3
+    ucfg = dict(ecfg, fold_bn=False)
+    upredict, uwall, _, _ = export("unfolded.pt2", ucfg)
+    got_u, counts = counted(upredict, x)
+    expect(counts, "unfolded artifact", gather_db=1, maxpool2x2=1)
+    by_path["exu"] = counts
+    with torch.no_grad():
+        same_u = _same_or_ulp16(
+            torch, got_u, E.make_serving_forward(build_unet(ucfg), sd,
+                                                 ucfg)(x))
+    check(same_u is not None, "unfolded artifact vs eager serving forward")
+    print(f"export: fold_bn false artifact (exported in {uwall:.2f} s): "
+          f"{same_u} to its eager forward; launches a call {counts} "
+          f"[{card}]")
+
+    # the serving preset's slab artifact: uint8 codes in and out
+    scfg = dict(SERVING_PRESET, device="cuda")
+    spredict, swall, _, ssize = export("slab.pt2", scfg, mode="slab")
+    slive = E.make_serving_forward(build_unet(scfg), sd, scfg)
+    chunks = [slab[None], np.stack([slab[:512, :768], slab[512:1024,
+                                                           300:1068]])]
+    codes = [torch.from_numpy(_quantize_db_u8(raw)).to(dev)
+             for raw in chunks]
+    outs, counts = counted(lambda: [spredict(c) for c in codes])
+    expect(counts, "slab artifact, two chunks", gather_db=2, relu_pool_skip=2)
+    by_path["es"] = counts
+    notes = []
+    for c, out in zip(codes, outs):
+        check(out.dtype == torch.uint8 and out.shape == c.shape[:3] + (3,),
+              f"slab artifact: {out.dtype} {tuple(out.shape)}")
+        with torch.no_grad():
+            ref = slive(c)
+        d = int((out.int() - ref.int()).abs().max())
+        check(d <= 1, f"slab artifact vs eager: codes {d} apart")
+        notes.append(f"{tuple(c.shape)}: {int((out != ref).sum())} codes "
+                     f"differ (max {d})")
+    try:
+        spredict(torch.zeros((1, 1000, 1120, 4), dtype=torch.uint8,
+                             device=dev))
+        refused = None
+    except Exception as exc:    # the artifact's shape guard
+        refused = f"{type(exc).__name__}: {str(exc).splitlines()[0][:120]}"
+    check(refused is not None, "slab artifact served an unaligned chunk")
+    print(f"export: serving-preset slab artifact (uint8 in and out) exported "
+          f"in {swall:.2f} s, {ssize} bytes; {'; '.join(notes)} against the "
+          f"eager forward; launches for the two chunks {counts}; "
+          f"(1, 1000, 1120, 4) refused ({refused}) [{card}]")
+
+    # a metadata artifact: late inject, the six families
+    mcfg = dict(ecfg, meta_channels=META_CHANNELS_ALL, late_meta_inject=True)
+    msd = init_random_(build_unet(mcfg), torch.Generator().manual_seed(
+        SEED + 1)).state_dict()
+    t = time.perf_counter()
+    E.save_exported(E.export_predictor(build_unet(mcfg), msd, mcfg),
+                    art / "meta.pt2")
+    mwall = time.perf_counter() - t
+    mpredict = E.load_predictor(art / "meta.pt2")
+    meta = torch.randn((32, 256, 256, 7), generator=torch.Generator(
+        ).manual_seed(SEED)).to(dev)
+    got_m, counts = counted(mpredict, x, meta)
+    expect(counts, "metadata artifact", gather_db=1, relu_pool_skip=1)
+    by_path["em"] = counts
+    with torch.no_grad():
+        same_m = _same_or_ulp16(torch, got_m, E.make_serving_forward(
+            build_unet(mcfg), msd, mcfg)(x, meta))
+    check(same_m is not None and bool(torch.isfinite(got_m).all()),
+          "metadata artifact vs eager serving forward")
+    print(f"export: late-inject metadata artifact (six families, exported "
+          f"and saved in {mwall:.2f} s): {same_m} to its eager forward; "
+          f"launches a call {counts} [{card}]")
+
+    # exported on the CPU, loaded on the card
+    cpredict, cwall, _, _ = export("cpu.pt2", ecfg, device="cpu")
+    got_c, counts = counted(cpredict, x)
+    expect(counts, "CPU-exported artifact on cuda", gather_db=1,
+           relu_pool_skip=1)
+    check(torch.equal(got_c, got), "CPU-exported artifact on the card != "
+                                   "the card-exported artifact")
+    print(f"export: patch artifact exported on the CPU ({cwall:.2f} s) and "
+          f"loaded on cuda: equal to the card-exported one; launches "
+          f"{counts} [{card}]")
+
+    # time: the artifact against the eager serving forward
+    flops = 32 * unet_forward_flops(256, 256, depth=cfg["depth"],
+                                    start_filts=cfg["start_filts"])
+    t_art = burst_time(predict, x, reps=5, burst=10, warmup=3)
+    with torch.no_grad():
+        t_eager = burst_time(live, x, reps=5, burst=10, warmup=3)
+    peak = device_peak_flops()
+    rates = {}
+    for name, sec in (("artifact", t_art), ("eager", t_eager)):
+        m = mfu(flops, sec)
+        rates[f"export {name} ms a call of 32"] = sec * 1e3
+        print(f"export: {name} forward, (32, 256, 256, 4) float32: "
+              f"{sec * 1e3:.3f} ms a call (burst_time, best of 5 bursts of "
+              f"10), {flops / 1e12:.3f} TFLOP a call "
+              f"({flops / 32 / 1e9:.1f} GFLOP a patch), "
+              f"{flops / sec / 1e12:.1f} TFLOP/s, MFU "
+              + (f"{100 * m:.2f} % of {peak / 1e12:.1f} TFLOP/s bf16"
+                 if m is not None else "not measured (no peak for this card)")
+              + f" [{card}]")
+
+    # the selfcheck CLI on this box
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "crimac_unet_tpu_torch.selfcheck"], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and "SELFCHECK PASSED" in proc.stdout
+          and any(ln.startswith("[ok  ] kernels (K1, K3)") for ln in lines),
+          f"selfcheck: rc {proc.returncode}\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-3000:]}")
+    print(f"selfcheck CLI: exit 0 in {time.perf_counter() - t:.1f} s:")
+    for ln in lines:
+        print("  " + ln)
+
+    # save_predict under CRIMAC_PROFILE_DIR, its trace read back
+    prof = art / "profile"
+    out = art / "preds"
+    yml = art / "save_predict.yaml"
+    yml.write_text(json.dumps(dict(cfg, path_to_echograms=str(ech_dir))))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "crimac_unet_tpu_torch.pipeline.save_predict",
+         "--yaml_path", str(yml), "--checkpoint_path", str(ck),
+         "--save_predictions_path", str(out)], cwd=str(ROOT),
+        env=dict(env, CRIMAC_PROFILE_DIR=str(prof)), capture_output=True,
+        text=True, timeout=600)
+    check(proc.returncode == 0 and "profiler trace written" in proc.stdout,
+          f"save_predict under CRIMAC_PROFILE_DIR: rc {proc.returncode}\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    _check_memm_preds(out, 1)
+    rows = device_op_table(prof, top=0)
+    names = [r["name"] for r in rows]
+    k1 = [r for r in rows if "gather_db_kernel" in r["name"]]
+    k3 = [r for r in rows if "pool_kernel" in r["name"]
+          and "true>" in r["name"]]
+    check(k1 and k3, f"device_op_table names no K1 / K3 kernel: "
+                     f"{names[:20]}")
+    print(f"save_predict CLI under CRIMAC_PROFILE_DIR: exit 0 in "
+          f"{time.perf_counter() - t:.1f} s; device_op_table of its trace "
+          f"({len(rows)} kernels), top rows [{card}]:")
+    for r in rows[:8] + [r for r in k1 + k3 if r not in rows[:8]]:
+        print(f"  {r['total_ms']:9.3f} ms x{r['count']:<5} {r['name'][:110]}")
+    return by_path, rates
+
+
 RECIPES = ("baseline", "fast", "meta-early", "meta-late", "zarr")
 
 
@@ -2356,8 +2722,8 @@ def run_recipe(torch, tmp, name, dtype, card):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(1, 15))),
-                    help="comma-separated subset of phases 1-14 (11 needs "
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 16))),
+                    help="comma-separated subset of phases 1-15 (11 needs "
                          "4 and 6)")
     ap.add_argument("--recipe", choices=RECIPES,
                     help="also train a full recipe (baseline: 15000 x "
@@ -2400,7 +2766,7 @@ def main(argv=None) -> int:
                 torch, cuda_lib, ech_dir, reader, cfg, card)
             launches["binary_closing"] = \
                 by_path["memm_eval"]["binary_closing"]
-        if phases & {6, 7, 8, 11}:
+        if phases & {6, 7, 8, 11, 15}:
             sv, zreader = zarr_setup(torch, tmp)
         zarr_pred = None
         if 6 in phases:
@@ -2434,11 +2800,16 @@ def main(argv=None) -> int:
             rates.update(r)
         if 13 in phases:
             by_path["tz"], r = phase_zarr_train(torch, cuda_lib, tmp, card,
-                                                TRAIN_ITERATIONS)
+                                                TRAIN_ITERATIONS_13_14)
             rates.update(r)
         if 14 in phases:
             paths, r = phase_meta_train(torch, cuda_lib, tmp, card,
-                                        TRAIN_ITERATIONS)
+                                        TRAIN_ITERATIONS_13_14)
+            by_path.update(paths)
+            rates.update(r)
+        if 15 in phases:
+            paths, r = phase_export(torch, cuda_lib, tmp, ech_dir, reader,
+                                    zreader, cfg, card)
             by_path.update(paths)
             rates.update(r)
         if args.recipe:
@@ -2453,7 +2824,7 @@ def main(argv=None) -> int:
                  launches_by_path={p: c[name] for p, c in by_path.items()})
             for name in KERNELS]}))
         print("main paths: " + ", ".join(
-            f"{k} {v:.1f}" + ("" if "/s" in k else " pings/s")
+            f"{k} {v:.1f}" + ("" if "/s" in k or " ms " in k else " pings/s")
             for k, v in rates.items()) + f" [{card}]")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

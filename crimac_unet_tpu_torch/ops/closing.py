@@ -4,7 +4,9 @@
 with the disc of ops/morphology.py, zeroing the dilation outside
 ``clip_mask`` before the erosion (the reference's crop-then-close,
 refine_label_boundary.py:85-96).  Kernel: ``csrc/closing.cu`` (replaces
-``crimac_unet_tpu/ops/pallas_morphology.py`` ``binary_closing_pallas``).
+``crimac_unet_tpu/ops/pallas_morphology.py`` ``binary_closing_pallas``),
+registered as the operator ``crimac::binary_closing`` (ops/cuda_lib.py
+``define_op``).
 """
 
 from __future__ import annotations
@@ -34,12 +36,8 @@ def _check(mask: torch.Tensor, clip_mask: torch.Tensor) -> None:
         raise ValueError("binary_closing takes at most 65535 masks a call")
 
 
-def binary_closing(mask: torch.Tensor, clip_mask: torch.Tensor
-                   ) -> torch.Tensor:
-    """(B, H, W) bool mask and clip mask -> closed (B, H, W) bool."""
-    _check(mask, clip_mask)
-    if cuda_lib.require_device(mask, clip_mask) == "cpu":
-        return binary_closing_reference(mask, clip_mask)
+def _binary_closing_cuda(mask: torch.Tensor, clip_mask: torch.Tensor
+                         ) -> torch.Tensor:
     B, H, W = mask.shape
     out = torch.empty_like(mask)
     err = cuda_lib.lib().crimac_binary_closing(
@@ -50,8 +48,23 @@ def binary_closing(mask: torch.Tensor, clip_mask: torch.Tensor
     return out
 
 
+def binary_closing(mask: torch.Tensor, clip_mask: torch.Tensor
+                   ) -> torch.Tensor:
+    """(B, H, W) bool mask and clip mask -> closed (B, H, W) bool
+    (``crimac::binary_closing``)."""
+    _check(mask, clip_mask)
+    cuda_lib.require_device(mask, clip_mask)
+    return _OP(mask, clip_mask)
+
+
 def binary_closing_reference(mask: torch.Tensor, clip_mask: torch.Tensor
                              ) -> torch.Tensor:
     """Plain version of :func:`binary_closing`: the convolution counts of
     ops/morphology.py."""
     return _closing_plain(mask, DISC_7X7, clip_mask=clip_mask)
+
+
+_OP = cuda_lib.define_op(
+    "binary_closing(Tensor mask, Tensor clip_mask) -> Tensor",
+    _binary_closing_cuda, binary_closing_reference,
+    lambda mask, clip_mask: torch.empty_like(mask))

@@ -11,6 +11,14 @@ Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a nonzero code into an
 exception.  ``launches`` counts, per kernel, the launches the wrappers
 made — a run resets it and reads it to show which kernels carried it.
+
+Every kernel is also an operator of the ``crimac::`` namespace
+(:func:`define_op`): its CUDA implementation is the ctypes launch, its
+CPU implementation the plain PyTorch version, and its fake
+implementation allocates the outputs only, so ``torch.export`` records
+the launch in an exported graph (pipeline/export.py) and a loaded
+artifact dispatches it to the kernel.  The public wrappers check their
+arguments and call the operator; the dispatcher picks the device.
 """
 
 from __future__ import annotations
@@ -42,6 +50,21 @@ launches = {"gather_db": 0, "maxpool2x2": 0, "relu_pool_skip": 0,
 _lock = threading.Lock()
 _lib = None
 build_log = ""         # nvcc's output (ptxas register / spill report)
+
+
+# one Library object owns the namespace; each kernel module adds its op
+LIB = torch.library.Library("crimac", "DEF")
+
+
+def define_op(schema: str, cuda, cpu, fake):
+    """Define ``crimac::<name>`` from ``schema`` with its CUDA, CPU and
+    fake implementations; returns the operator overload to call."""
+    name = schema.split("(", 1)[0]
+    LIB.define(schema)
+    LIB.impl(name, cuda, "CUDA")
+    LIB.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"crimac::{name}", fake, lib=LIB)
+    return getattr(torch.ops.crimac, name).default
 
 
 def reset_launches() -> None:

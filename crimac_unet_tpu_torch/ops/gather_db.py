@@ -6,7 +6,8 @@ network's dB input, zero the pixels outside the data rectangle and emit
 NHWC patches in the compute dtype — one pass, one launch per forward
 sub-batch.  Kernel: ``csrc/gather_db.cu`` (replaces
 ``crimac_unet_tpu/ops/pallas_gather.py`` ``gather_db_pallas`` and the XLA
-gather of ``crimac_unet_tpu/pipeline/runner.py:345-358``).
+gather of ``crimac_unet_tpu/pipeline/runner.py:345-358``), registered as the
+operator ``crimac::gather_db`` (ops/cuda_lib.py ``define_op``).
 """
 
 from __future__ import annotations
@@ -45,30 +46,14 @@ def _check(slab, y0s, x0s, window, border, out_dtype):
         raise ValueError(f"out_dtype must be one of {_OUT_DTYPES}")
 
 
-def gather_db(slab: torch.Tensor, y0s: torch.Tensor, x0s: torch.Tensor,
-              window, border=None, scaled: bool = False,
-              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """(Hs, Wp, Cf) HWC slab + (N,) int32 patch starts -> (N, wh, ww, Cf)
-    dB patches in ``out_dtype``.
-
-    ``slab`` is float32/bfloat16 raw sv or uint8 dB codes.  Pixels outside
-    the slab (rows at or beyond Hs: the zero pad the host did not ship)
-    read as raw zeros.  ``border`` = (y0, y1, x0, x1), the data rectangle
-    in slab coordinates: pixels outside it come out 0.0.  CPU tensors take
-    the plain version; CUDA tensors the kernel."""
-    _check(slab, y0s, x0s, window, border, out_dtype)
-    if cuda_lib.require_device(slab, y0s, x0s) == "cpu":
-        return gather_db_reference(slab, y0s, x0s, window, border, scaled,
-                                   out_dtype)
-    wh, ww = window
+def _gather_db_cuda(slab, y0s, x0s, wh, ww, border, scaled, out_dtype):
     Hs, Wp, Cf = slab.shape
     N = y0s.shape[0]
     if N > 65535 or slab.numel() >= 2 ** 31:
         raise ValueError(f"gather_db takes at most 65535 patches and "
                          f"2**31 slab elements, got {N} / {slab.numel()}")
     out = torch.empty((N, wh, ww, Cf), dtype=out_dtype, device=slab.device)
-    by0, by1, bx0, bx1 = (int(v) for v in border) if border is not None \
-        else (0, 0, 0, 0)
+    by0, by1, bx0, bx1 = border if border is not None else (0, 0, 0, 0)
     err = cuda_lib.lib().crimac_gather_db(
         slab.data_ptr(), cuda_lib.DTYPE_CODES[slab.dtype], Hs, Wp, Cf,
         y0s.data_ptr(), x0s.data_ptr(), N, wh, ww, int(border is not None),
@@ -77,6 +62,41 @@ def gather_db(slab: torch.Tensor, y0s: torch.Tensor, x0s: torch.Tensor,
     cuda_lib.check(err, "gather_db")
     cuda_lib.launches["gather_db"] += 1
     return out
+
+
+def _gather_db_cpu(slab, y0s, x0s, wh, ww, border, scaled, out_dtype):
+    return gather_db_reference(slab, y0s, x0s, (wh, ww), border, scaled,
+                               out_dtype)
+
+
+def _gather_db_fake(slab, y0s, x0s, wh, ww, border, scaled, out_dtype):
+    return slab.new_empty((y0s.shape[0], wh, ww, slab.shape[2]),
+                          dtype=out_dtype)
+
+
+_OP = cuda_lib.define_op(
+    "gather_db(Tensor slab, Tensor y0s, Tensor x0s, SymInt wh, SymInt ww, "
+    "int[]? border, bool scaled, ScalarType out_dtype) -> Tensor",
+    _gather_db_cuda, _gather_db_cpu, _gather_db_fake)
+
+
+def gather_db(slab: torch.Tensor, y0s: torch.Tensor, x0s: torch.Tensor,
+              window, border=None, scaled: bool = False,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(Hs, Wp, Cf) HWC slab + (N,) int32 patch starts -> (N, wh, ww, Cf)
+    dB patches in ``out_dtype`` (``crimac::gather_db``).
+
+    ``slab`` is float32/bfloat16 raw sv or uint8 dB codes.  Pixels outside
+    the slab (rows at or beyond Hs: the zero pad the host did not ship)
+    read as raw zeros.  ``border`` = (y0, y1, x0, x1), the data rectangle
+    in slab coordinates: pixels outside it come out 0.0.  CPU tensors take
+    the plain version; CUDA tensors the kernel."""
+    _check(slab, y0s, x0s, window, border, out_dtype)
+    cuda_lib.require_device(slab, y0s, x0s)
+    wh, ww = window
+    return _OP(slab, y0s, x0s, wh, ww,
+               None if border is None else [int(v) for v in border],
+               bool(scaled), out_dtype)
 
 
 def gather_db_reference(slab, y0s, x0s, window, border=None, scaled=False,

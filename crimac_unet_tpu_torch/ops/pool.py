@@ -6,7 +6,10 @@ into the conv) and returns ``(pooled, skip)`` with ``skip = relu(x)`` and
 ``pooled = maxpool2x2(skip)``, reading x once.  NaN propagates as in
 XLA's ``reduce_window(max)`` and torch's ``max_pool2d``.  Kernels:
 ``csrc/pool.cu`` (replace ``crimac_unet_tpu/ops/pallas_pool.py``
-``maxpool2x2`` and ``relu_pool_skip``).
+``maxpool2x2`` and ``relu_pool_skip``), registered as the operators
+``crimac::maxpool2x2`` and ``crimac::relu_pool_skip`` (ops/cuda_lib.py
+``define_op``): CUDA tensors launch the kernel, CPU tensors take the
+plain version.
 """
 
 from __future__ import annotations
@@ -30,6 +33,12 @@ def _check(x: torch.Tensor, name: str) -> None:
     if not x.is_contiguous():
         raise ValueError(f"{name} needs a contiguous (B, H, W, C) tensor "
                          "(a channels_last activation permuted to NHWC)")
+    cuda_lib.require_device(x)
+
+
+def _check_int32(x: torch.Tensor, name: str) -> None:
+    """The kernels index with int32: checked on real tensors only (a
+    symbolic batch of an exported graph has no such bound)."""
     if x.numel() >= 2 ** 31:
         raise ValueError(f"{name} takes fewer than 2**31 elements")
 
@@ -43,13 +52,15 @@ def _vec(C: int, *tensors: torch.Tensor) -> int:
     return 8 if all(t.data_ptr() % align == 0 for t in tensors) else 1
 
 
-def maxpool2x2(x: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, C) -> (B, H/2, W/2, C) 2x2 stride-2 VALID max."""
-    _check(x, "maxpool2x2")
-    if cuda_lib.require_device(x) == "cpu":
-        return maxpool2x2_reference(x)
+def _pooled_like(x: torch.Tensor) -> torch.Tensor:
     B, H, W, C = x.shape
-    out = torch.empty((B, H // 2, W // 2, C), dtype=x.dtype, device=x.device)
+    return x.new_empty((B, H // 2, W // 2, C))
+
+
+def _maxpool2x2_cuda(x: torch.Tensor) -> torch.Tensor:
+    _check_int32(x, "maxpool2x2")
+    B, H, W, C = x.shape
+    out = _pooled_like(x)
     err = cuda_lib.lib().crimac_maxpool2x2(
         x.data_ptr(), out.data_ptr(), cuda_lib.DTYPE_CODES[x.dtype], B, H, W,
         C, _vec(C, x, out), cuda_lib.stream_of(x))
@@ -58,15 +69,10 @@ def maxpool2x2(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def relu_pool_skip(x: torch.Tensor):
-    """Raw (B, H, W, C) conv output -> (pooled (B, H/2, W/2, C),
-    skip = relu(x) (B, H, W, C))."""
-    _check(x, "relu_pool_skip")
-    if cuda_lib.require_device(x) == "cpu":
-        return relu_pool_skip_reference(x)
+def _relu_pool_skip_cuda(x: torch.Tensor):
+    _check_int32(x, "relu_pool_skip")
     B, H, W, C = x.shape
-    pooled = torch.empty((B, H // 2, W // 2, C), dtype=x.dtype,
-                         device=x.device)
+    pooled = _pooled_like(x)
     skip = torch.empty_like(x)
     err = cuda_lib.lib().crimac_relu_pool_skip(
         x.data_ptr(), pooled.data_ptr(), skip.data_ptr(),
@@ -87,3 +93,28 @@ def relu_pool_skip_reference(x: torch.Tensor):
     """Plain version of :func:`relu_pool_skip`."""
     skip = torch.relu(x)
     return maxpool2x2_reference(skip), skip
+
+
+# the fakes return contiguous NHWC tensors, as the kernels and the plain
+# versions do, so a traced graph sees the strides that run
+_MAXPOOL_OP = cuda_lib.define_op(
+    "maxpool2x2(Tensor x) -> Tensor", _maxpool2x2_cuda, maxpool2x2_reference,
+    _pooled_like)
+_RELU_POOL_SKIP_OP = cuda_lib.define_op(
+    "relu_pool_skip(Tensor x) -> (Tensor, Tensor)", _relu_pool_skip_cuda,
+    relu_pool_skip_reference,
+    lambda x: (_pooled_like(x), torch.empty_like(x)))
+
+
+def maxpool2x2(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/2, W/2, C) 2x2 stride-2 VALID max
+    (``crimac::maxpool2x2``)."""
+    _check(x, "maxpool2x2")
+    return _MAXPOOL_OP(x)
+
+
+def relu_pool_skip(x: torch.Tensor):
+    """Raw (B, H, W, C) conv output -> (pooled (B, H/2, W/2, C),
+    skip = relu(x) (B, H, W, C)) (``crimac::relu_pool_skip``)."""
+    _check(x, "relu_pool_skip")
+    return _RELU_POOL_SKIP_OP(x)

@@ -96,7 +96,12 @@ def main(argv=None):
     state_dict = load_checkpoint(config["checkpoint_path"])
     runner = GriddedRunner(build_unet(config), state_dict, config,
                            device=config.get("device"))
-    run_save_predictions(config, runner, predictions_dir, progress=True)
+    # a torch.profiler trace of the run when CRIMAC_PROFILE_DIR is set
+    from ..utils.profiling import device_trace
+    with device_trace() as trace_dir:
+        run_save_predictions(config, runner, predictions_dir, progress=True)
+    if trace_dir:
+        print(f"profiler trace written to {trace_dir}")
     print(runner.timer.report())
 
 

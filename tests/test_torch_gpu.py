@@ -415,3 +415,76 @@ def test_meta_gather_on_card_matches_cpu(cuda):
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_crimac_ops_on_card_match_plain(cuda):
+    """The kernels called as torch.ops.crimac.* (as an exported graph
+    calls them) against their plain versions: gather_db within one ulp,
+    the pools and the closing bit-equal; each call counts one launch."""
+    rng = np.random.RandomState(5)
+    slab = torch.from_numpy(_raw_slab(rng)).to(cuda)
+    y0s = torch.from_numpy(rng.randint(0, HP - WIN[0] + 1, 8).astype(
+        np.int32)).to(cuda)
+    x0s = torch.from_numpy(rng.randint(0, WP - WIN[1] + 1, 8).astype(
+        np.int32)).to(cuda)
+    ops = torch.ops.crimac
+    before = dict(cuda_lib.launches)
+    for border in (None, [4, 80, 6, 120]):
+        _assert_within_one_ulp(
+            ops.gather_db(slab, y0s, x0s, *WIN, border, False,
+                          torch.bfloat16),
+            gather_db_reference(slab, y0s, x0s, WIN, border, False,
+                                torch.bfloat16))
+    x = (torch.randn((2, 16, 32, 64), generator=torch.Generator(
+        ).manual_seed(3)) * 2).to(cuda, torch.bfloat16)
+    x.view(-1)[::97] = float("nan")
+    _assert_equal_nan(ops.maxpool2x2(x), maxpool2x2_reference(x))
+    for got, want in zip(ops.relu_pool_skip(x), relu_pool_skip_reference(x)):
+        _assert_equal_nan(got, want)
+    mask = torch.rand((3, 40, 70), device=cuda) < 0.4
+    clip = torch.ones_like(mask)
+    clip[:, :5] = False
+    assert torch.equal(ops.binary_closing(mask, clip),
+                       binary_closing_reference(mask, clip))
+    assert {k: cuda_lib.launches[k] - before[k] for k in before} == {
+        "gather_db": 2, "maxpool2x2": 1, "relu_pool_skip": 1,
+        "binary_closing": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fold_bn", [True, False])
+def test_artifact_on_card_launches_the_kernels(cuda, tmp_path, fold_bn):
+    """An artifact exported and loaded on the card launches K1 once and K3
+    once a call (K2 with fold_bn: false) and equals the eager serving
+    forward; one exported on the CPU and loaded on the card does too."""
+    from crimac_unet_tpu_torch.models.unet import build_unet, init_random_
+    from crimac_unet_tpu_torch.pipeline.export import (export_predictor,
+                                                       load_predictor,
+                                                       make_serving_forward,
+                                                       save_exported)
+    cfg = {"patch_size": [32, 32], "frequencies": [18, 38, 120, 200],
+           "depth": 3, "start_filts": 8, "compute_dtype": "float32",
+           "fold_bn": fold_bn}
+    sd = init_random_(build_unet(cfg), torch.Generator().manual_seed(
+        0)).state_dict()
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.lognormal(np.log(1e-6), 2.0, (3, 32, 32, 4))
+                         .astype(np.float32)).to(cuda)
+    x[0, :2, :2, 0] = float("nan")
+    pool = "relu_pool_skip" if fold_bn else "maxpool2x2"
+    live = make_serving_forward(build_unet(cfg), sd, cfg, device=cuda)
+    with torch.no_grad():
+        want = live(x)
+    for where in ("cuda", "cpu"):
+        path = tmp_path / f"{where}.pt2"
+        save_exported(export_predictor(build_unet(cfg), sd, cfg,
+                                       device=where), path)
+        predict = load_predictor(path)
+        cuda_lib.reset_launches()
+        got = predict(x)
+        torch.cuda.synchronize()
+        assert cuda_lib.launches["gather_db"] == 1
+        assert cuda_lib.launches[pool] == 1
+        assert sum(cuda_lib.launches.values()) == 2
+        assert torch.equal(got, want), where
