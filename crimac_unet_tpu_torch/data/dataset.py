@@ -6,7 +6,8 @@ draws a sampler and a center per sample from one ``RandomState`` and either
 extracts the raw crops (data, labels, seabed rows) or, with a device sample
 pool attached, ships only the crops' pool coordinates.  Every transform
 runs on the device in the train and eval steps (pipeline/engine.py).  A
-thread pool fills a bounded queue ahead of the training loop.
+thread pool fills bounded queues ahead of the training loop, in a fixed
+batch order.
 
 Batch layout: data (B, C, wh, ww) float32 raw sv, labels (B, wh, ww) int32
 raw codes, seabed_row (B, ww) int32 patch row of seabed+pad (BIG_ROW where
@@ -131,43 +132,48 @@ class RandomPatchDataset:
 
 
 class BatchPrefetcher:
-    """Threaded batch prefetch: N producer threads fill a bounded queue
+    """Threaded batch prefetch: N producer threads fill bounded queues
     (the reference's DataLoader worker processes, train.py:73-79, as
     threads: crop extraction is numpy/memmap-bound and releases the GIL in
-    the hot gathers).  A worker's exception is raised by the consumer."""
+    the hot gathers).  Worker ``i`` makes batches ``i, i+N, ...`` from its
+    own dataset and the consumer reads them in that order, so the batch
+    sequence does not depend on thread timing: every rank of a data mesh
+    draws the same global batches.  A worker's exception is raised by the
+    consumer."""
 
     def __init__(self, dataset_factory, batch_size, n_batches,
                  num_workers=4, prefetch_depth=4):
         self.batch_size = batch_size
         self.n_batches = n_batches
-        self.queue: queue.Queue = queue.Queue(maxsize=prefetch_depth)
-        self._count = 0
-        self._lock = threading.Lock()
+        num_workers = max(1, num_workers)
+        depth = max(1, -(-prefetch_depth // num_workers))
+        self.queues = [queue.Queue(maxsize=depth)
+                       for _ in range(num_workers)]
+        self._error = None
         self._stop = threading.Event()    # stop producing (crash or close)
         self._closed = threading.Event()  # consumer is gone: drop batches
-        num_workers = max(1, num_workers)
         self.threads = [
             threading.Thread(target=self._worker,
-                             args=(dataset_factory(seed_offset=i),),
+                             args=(i, dataset_factory(seed_offset=i)),
                              daemon=True)
             for i in range(num_workers)]
         for t in self.threads:
             t.start()
 
-    def _worker(self, dataset):
-        while not self._stop.is_set():
-            with self._lock:
-                if self._count >= self.n_batches:
-                    return
-                self._count += 1
+    def _worker(self, i, dataset):
+        q = self.queues[i]
+        for _ in range(i, self.n_batches, len(self.queues)):
+            if self._stop.is_set():
+                return
             try:
                 batch = dataset.batch(self.batch_size)
             except BaseException as exc:  # surfaced by the consumer
                 batch = exc
+                self._error = exc
                 self._stop.set()
             while True:
                 try:
-                    self.queue.put(batch, timeout=0.5)
+                    q.put(batch, timeout=0.5)
                     break
                 except queue.Full:
                     # the consumer is gone: drop even exception batches, or
@@ -180,11 +186,21 @@ class BatchPrefetcher:
             if isinstance(batch, BaseException):
                 return
 
+    def _get(self, k):
+        q = self.queues[k % len(self.queues)]
+        while True:
+            try:
+                return q.get(timeout=0.5)
+            except queue.Empty:
+                # another worker failed: this one has stopped producing
+                if self._error is not None:
+                    return self._error
+
     def __iter__(self):
         # close() on every exit path, so other workers stop retrying
         try:
-            for _ in range(self.n_batches):
-                batch = self.queue.get()
+            for k in range(self.n_batches):
+                batch = self._get(k)
                 if isinstance(batch, BaseException):
                     raise batch
                 yield batch

@@ -64,19 +64,87 @@ def _bn(x, bn, dtype):
 BN_MOMENTUM = 0.9   # flax's: running = m * running + (1 - m) * batch
 
 
-def _bn_train(x, bn, dtype):
+def _bn_train(x, bn, dtype, mesh=None):
     """flax's train-mode BatchNorm: batch statistics in float32 (mean and
     the fast biased variance), running statistics updated in place, the
-    normalization in float32 and cast back."""
+    normalization in float32 and cast back.
+
+    Under a data mesh (parallel/mesh.py) the per-channel means and means
+    of squares are averaged over the ranks (a differentiable sum over N)
+    before the variance is read, so both are the GLOBAL batch's, as
+    flax's BatchNorm over a sharded batch is (every rank holds as many
+    rows); the running statistics then stay identical on every rank.  A
+    mesh of one rank leaves the statistics' bits as they are."""
     xf = x.float()
     mean = xf.mean(dim=(0, 2, 3))
-    var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+    sq = (xf * xf).mean(dim=(0, 2, 3))
+    if mesh is not None:
+        from ..parallel.mesh import all_reduce_sum
+        mean, sq = all_reduce_sum(torch.stack([mean, sq]), mesh) / mesh.size
+    var = torch.clamp(sq - mean * mean, min=0.0)
     with torch.no_grad():
         bn.running_mean.mul_(BN_MOMENTUM).add_(mean * (1 - BN_MOMENTUM))
         bn.running_var.mul_(BN_MOMENTUM).add_(var * (1 - BN_MOMENTUM))
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     y = (xf - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
     return (y + bn.bias.view(1, -1, 1, 1)).to(dtype)
+
+
+def _reads(depth: int, x: int) -> tuple[int, int]:
+    """The input columns ``[lo, hi]`` that output column ``x`` of a
+    ``depth``-level U-Net of this module reads.
+
+    Walk the interval through every path from the logits to the input:
+    each 3x3 conv at a level widens it by one pixel of that level on each
+    side (two convs per encoder and per decoder block), a 2x2/2
+    transposed conv maps level-i pixels ``[L, R]`` to level-(i+1) pixels
+    ``[L//2, R//2]``, and going back up through a 2x2/2 max pool
+    level-(i+1) pixels ``[a, b]`` came from level-i pixels ``[2a, 2b+1]``.
+    The pattern repeats every ``2**depth`` columns."""
+    lo_all = hi_all = x
+    for skip in range(depth):        # the path through level ``skip``
+        lo = hi = x
+        for _ in range(skip):        # decoder block, then upconv
+            lo, hi = (lo - 2) // 2, (hi + 2) // 2
+        lo, hi = lo - 2, hi + 2      # the (decoder or bottom) block
+        if skip < depth - 1:         # the encoder block at ``skip``
+            lo, hi = lo - 2, hi + 2
+        for _ in range(skip):        # pool, then encoder block
+            lo, hi = 2 * lo - 2, 2 * hi + 3
+        lo_all, hi_all = min(lo_all, lo), max(hi_all, hi)
+    return lo_all, hi_all
+
+
+def receptive_radius(depth: int) -> int:
+    """How far (in input pixels, on either side) an output pixel of a
+    ``depth``-level U-Net can see (``_reads``).  The floor and the pool's
+    extra pixel fall on opposite sides, so the reach is less than the sum
+    of every layer's one-sided growth (122 at depth 5): the worst column
+    over a period reaches ``7 * 2**(depth-1) - 5`` pixels, 107 at depth
+    5."""
+    return max(max(x - lo, hi - x) for x in range(2 ** depth)
+               for lo, hi in (_reads(depth, x),))
+
+
+def slab_halo(depth: int) -> int:
+    """The pings a slab range needs past each inner end when both ends
+    are multiples of the pooling alignment ``p = 2**(depth-1)``, as
+    ``runner._predict_slab``'s ranges are: the farthest any output column
+    inside the range reads past the nearer end (``_reads``, over both
+    phases of an end within the pattern's period), rounded up to ``p`` so
+    the window keeps the global pooling grid.  The columns that reach
+    ``receptive_radius`` sit deeper inside an aligned range than its
+    edge, so the halo is smaller than the radius rounded up: 94 -> 96 px
+    at depth 5 (the radius 107 -> 112), 22 -> 24 at depth 3."""
+    p = 2 ** (depth - 1)
+    span = receptive_radius(depth) + 1   # deeper columns read nothing past
+    need = 0
+    for end in (0, p):
+        for x in range(end - span, end):     # left of a right end
+            need = max(need, _reads(depth, x)[1] - end + 1)
+        for x in range(end, end + span):     # right of a left end
+            need = max(need, end - _reads(depth, x)[0])
+    return -(-need // p) * p
 
 
 def _nchw(t_nhwc):
@@ -201,9 +269,11 @@ class UNet(nn.Module):
             outs += 1
         self.conv_final = nn.Conv2d(outs, n_classes, 1)
 
-    def forward(self, x, meta=None):
+    def forward(self, x, meta=None, mesh=None):
         """``x`` (B, H, W, C) NHWC; ``meta`` (B, H, W, M) NHWC metadata for
-        late inject (early inject concatenates it into ``x``)."""
+        late inject (early inject concatenates it into ``x``); ``mesh``
+        (train mode) the data mesh whose global batch the BatchNorm
+        statistics are taken over (parallel/mesh.py)."""
         if self.late_meta_inject and meta is None:
             raise ValueError("late_meta_inject requires meta input")
         if not self.training:
@@ -213,10 +283,13 @@ class UNet(nn.Module):
             # silently training a BN-folded model would corrupt the
             # folded statistics
             raise ValueError("BN-folded models are eval-only")
-        return self._forward(x, meta, train=True)
+        return self._forward(x, meta, train=True, mesh=mesh)
 
-    def _forward(self, x, meta, train: bool):
-        norm = _bn_train if train else _bn
+    def _forward(self, x, meta, train: bool, mesh=None):
+        norm = _bn
+        if train:
+            def norm(y, bn, dtype):
+                return _bn_train(y, bn, dtype, mesh)
         x = _nchw(x.contiguous()).to(self.dtype)  # channels_last NCHW view
         encoder_outs = []
         for i, down in enumerate(self.down_convs):

@@ -10,6 +10,11 @@ apply step, so tests can inject the JAX package's draws into the apply
 step.
 
 Layout: data (B, C, H, W) raw sv, meta (B, M, H, W), labels (B, H, W).
+
+``shard=(rank, n)``: the batch is rank ``rank``'s rows of an ``n``-rank
+data mesh's global batch (parallel/mesh.py).  The draws are then made for
+the global batch, from the generator every rank seeds alike, and this
+rank's rows of them applied, so ``n`` ranks augment as one device does.
 """
 
 from __future__ import annotations
@@ -42,6 +47,17 @@ def draw_flip(gen: torch.Generator, batch: int, device) -> torch.Tensor:
     return torch.rand((batch,), generator=gen, device=device) < 0.5
 
 
+def _global_draws(gen, data, shard):
+    """The noise and flip draws of the global batch, cut to this rank's
+    rows (all of them without ``shard``)."""
+    r, n = shard or (0, 1)
+    b = data.shape[0]
+    shape = (b * n,) + tuple(data.shape[1:])
+    noise = [t[r * b:(r + 1) * b]
+             for t in draw_noise(gen, shape, data.device)]
+    return noise, draw_flip(gen, b * n, data.device)[r * b:(r + 1) * b]
+
+
 def _flip_where(flip, arr):
     mask = flip.reshape(flip.shape + (1,) * (arr.ndim - 1))
     return torch.where(mask, arr.flip(-1), arr)
@@ -52,19 +68,19 @@ def flip_x_axis(data, labels, flip):
     return _flip_where(flip, data), _flip_where(flip, labels)
 
 
-def augment_train(gen: torch.Generator, data, labels):
+def augment_train(gen: torch.Generator, data, labels, shard=None):
     """Train augmentation chain [add_noise, flip_x_axis]
     (reference transforms.py:39-45)."""
-    data = add_noise(data, *draw_noise(gen, data.shape, data.device))
-    return flip_x_axis(data, labels,
-                       draw_flip(gen, data.shape[0], data.device))
+    noise, flip = _global_draws(gen, data, shard)
+    return flip_x_axis(add_noise(data, *noise), labels, flip)
 
 
-def augment_train_meta(gen: torch.Generator, data, meta, labels):
+def augment_train_meta(gen: torch.Generator, data, meta, labels,
+                       shard=None):
     """Metadata variant: noise on the acoustic channels only, one flip
     shared by data, meta and labels (reference add_noise.py:37-62,
     flip_x_axis.py:26-31)."""
-    data = add_noise(data, *draw_noise(gen, data.shape, data.device))
-    flip = draw_flip(gen, data.shape[0], data.device)
+    noise, flip = _global_draws(gen, data, shard)
+    data = add_noise(data, *noise)
     return (_flip_where(flip, data), _flip_where(flip, meta),
             _flip_where(flip, labels))

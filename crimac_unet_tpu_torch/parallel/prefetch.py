@@ -5,8 +5,9 @@ copies of the next ``depth`` batches are in flight while the device runs
 the current one.  On a CUDA device each host array goes through pinned
 memory with a ``non_blocking`` copy on the current stream, so the copy
 neither waits for the host nor stalls the queue; PyTorch's pinned-memory
-cache keeps the host buffer until its copy has run.  Multi-device
-sharding waits for ROADMAP A3.
+cache keeps the host buffer until its copy has run.  Under a data mesh
+(parallel/mesh.py) only this rank's rows of each batch are copied: the
+crops, or the pooled ``ech_idx`` / ``starts`` coordinates, alike.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import collections
 
 import numpy as np
 import torch
+
+from .mesh import checked_shard
 
 
 def _put(batch: dict, device: torch.device) -> dict:
@@ -29,16 +32,18 @@ def _put(batch: dict, device: torch.device) -> dict:
     return out
 
 
-def device_prefetch(iterator, device, depth: int = 2):
+def device_prefetch(iterator, device, depth: int = 2, mesh=None):
     """Yield the host batches (dicts of numpy arrays) of ``iterator`` as
     dicts of tensors on ``device``, ``depth`` batches ahead (at least
-    one: a depth of 0 would yield nothing)."""
+    one: a depth of 0 would yield nothing); with a ``mesh``, this rank's
+    shard of each batch (``checked_shard``: every leading axis must divide
+    by the mesh size)."""
     device = torch.device(device)
     depth = max(1, int(depth))
     buf = collections.deque()
     it = iter(iterator)
     for batch in it:
-        buf.append(_put(batch, device))
+        buf.append(_put(checked_shard(batch, mesh), device))
         if len(buf) > depth:
             yield buf.popleft()
     while buf:

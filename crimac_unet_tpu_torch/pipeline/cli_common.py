@@ -59,7 +59,9 @@ def load_eval_context(argv=None, want_plots: bool = False,
     if need_runner:
         from ..models.unet import build_unet
         from ..models.weights import load_checkpoint
-        from .runner import GriddedRunner
+        from ..parallel.mesh import init_distributed
+        from .runner import GriddedRunner, resolve_device
+        init_distributed(device=resolve_device(config.get("device")))
         runner = GriddedRunner(build_unet(config),
                                load_checkpoint(config["checkpoint_path"]),
                                config, device=config.get("device"))

@@ -28,9 +28,10 @@ from ..data import blosc_codec
 from ..data.zarr_reader import DataReaderZarr
 from ..models.unet import build_unet
 from ..models.weights import load_checkpoint
+from ..parallel.mesh import init_distributed
 from ..utils.general import fix_seeds
 from .predict import save_survey_predictions_zarr
-from .runner import GriddedRunner
+from .runner import GriddedRunner, resolve_device
 from .save_predict import should_save_labels
 
 
@@ -79,6 +80,7 @@ def main():
                                        for f in reader.frequencies):
         config["frequencies"] = [f * 1000 for f in config["frequencies"]]
 
+    init_distributed(device=resolve_device(config.get("device")))
     runner = GriddedRunner(build_unet(config),
                            load_checkpoint(paths["model"]), config,
                            device=config.get("device"))

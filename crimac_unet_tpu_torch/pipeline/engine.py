@@ -34,6 +34,17 @@ optax's ``(TraceState(trace=<params tree>), ScaleByScheduleState(count))``
 as flax stores a tuple (``{"0": {"trace": ...}, "1": {"count": ...}}``),
 written atomically with the ``<path>.json`` sidecar first.  A step
 returns its loss as a device scalar and syncs nothing with the host.
+
+Under a data mesh (``mesh``, parallel/mesh.py) each rank runs a step on
+its rows of the global batch and the step computes what one device
+computes on the whole batch: the augmentation is drawn for the global
+batch from the generator every rank seeds alike and applied to this
+rank's rows; BatchNorm takes the global statistics (models/unet.py); each
+loss is this rank's share of the global one (a weighted mean divides by
+the all-reduced global weight, Dice reads all-reduced class sums); the
+gradients are summed over the ranks in one flat bucket after
+``backward()`` (``all_reduce_grads_``), and the returned loss and the
+validation histogram are the global ones.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ from ..models.weights import (flax_params_to_torch,
                               flax_to_torch_state_dict, to_tensors,
                               torch_to_flax_params, torch_to_flax_variables)
 from ..ops import augment, data_ops, label_ops, metrics
+from ..parallel.mesh import all_reduce_, all_reduce_grads_, all_reduce_sum
 from ..utils import flax_msgpack
 
 
@@ -102,7 +114,15 @@ def _pixel_weights(oh, valid, class_weights):
     return w * valid.to(torch.float32)
 
 
-def weighted_ce_loss(logits, labels, class_weights):
+def _weighted_mean(per_pixel, pix_w, mesh):
+    """``sum(per_pixel * w) / sum(w)`` over the global batch; under a mesh
+    this rank's share: its numerator over the all-reduced denominator
+    (which depends on the labels only and carries no gradient)."""
+    denom = all_reduce_(torch.sum(pix_w).detach(), mesh)
+    return torch.sum(per_pixel * pix_w) / torch.clamp(denom, min=1e-12)
+
+
+def weighted_ce_loss(logits, labels, class_weights, mesh=None):
     """torch CrossEntropyLoss(weight=w) with ignore_index=-100 semantics:
     weighted mean of per-pixel NLL over non-ignored pixels (reference
     pipeline.py:132-141).  The JAX package's log-softmax + one-hot
@@ -111,11 +131,11 @@ def weighted_ce_loss(logits, labels, class_weights):
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     oh = _one_hot(labels, valid)
     nll = -torch.sum(logp * oh, dim=-1)
-    pix_w = _pixel_weights(oh, valid, class_weights)
-    return torch.sum(nll * pix_w) / torch.clamp(torch.sum(pix_w), min=1e-12)
+    return _weighted_mean(nll, _pixel_weights(oh, valid, class_weights),
+                          mesh)
 
 
-def focal_loss(logits, labels, class_weights, gamma=2.0):
+def focal_loss(logits, labels, class_weights, gamma=2.0, mesh=None):
     """Weighted focal loss (the JAX package's extension of the reference's
     documented 'Focal' option)."""
     valid = labels != LABEL_IGNORE_VAL
@@ -123,14 +143,15 @@ def focal_loss(logits, labels, class_weights, gamma=2.0):
     oh = _one_hot(labels, valid)
     logp_t = torch.sum(logp * oh, dim=-1)
     focal = (1.0 - torch.exp(logp_t)) ** gamma * (-logp_t)
-    pix_w = _pixel_weights(oh, valid, class_weights)
-    return torch.sum(focal * pix_w) / torch.clamp(torch.sum(pix_w),
-                                                  min=1e-12)
+    return _weighted_mean(focal, _pixel_weights(oh, valid, class_weights),
+                          mesh)
 
 
-def dice_loss(logits, labels, eps=1e-6):
+def dice_loss(logits, labels, eps=1e-6, mesh=None):
     """Soft multiclass Dice over non-ignored pixels (the JAX package's
-    extension of the reference's documented 'Dice' option)."""
+    extension of the reference's documented 'Dice' option).  Under a mesh
+    the per-class sums are all-reduced (differentiably) and each rank
+    returns 1/N of the global loss, so the ranks' shares sum to it."""
     valid = labels != LABEL_IGNORE_VAL
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
     v = valid.to(torch.float32)[..., None]
@@ -138,24 +159,31 @@ def dice_loss(logits, labels, eps=1e-6):
     probs = probs * v
     inter = torch.sum(probs * onehot, dim=(0, 1, 2))
     union = torch.sum(probs + onehot, dim=(0, 1, 2))
-    return 1.0 - torch.mean((2 * inter + eps) / (union + eps))
+    if mesh is None:
+        return 1.0 - torch.mean((2 * inter + eps) / (union + eps))
+    inter, union = all_reduce_sum(torch.stack([inter, union]), mesh)
+    return (1.0 - torch.mean((2 * inter + eps) / (union + eps))) / mesh.size
 
 
-def make_loss_fn(config: dict):
+def make_loss_fn(config: dict, mesh=None):
     """Loss keyed on ``loss_type``: CE (the reference's only option),
-    Focal, Dice, Combined (Focal + CE)."""
+    Focal, Dice, Combined (Focal + CE); under a ``mesh`` this rank's
+    share of the global batch's loss."""
     loss_type = config.get("loss_type", "CE")
     w = tuple(float(v) for v in config.get("class_weights",
                                            (10.0, 300.0, 250.0)))
     if loss_type == "CE":
-        return lambda logits, labels: weighted_ce_loss(logits, labels, w)
+        return lambda logits, labels: weighted_ce_loss(logits, labels, w,
+                                                       mesh=mesh)
     if loss_type == "Focal":
-        return lambda logits, labels: focal_loss(logits, labels, w)
+        return lambda logits, labels: focal_loss(logits, labels, w,
+                                                 mesh=mesh)
     if loss_type == "Dice":
-        return lambda logits, labels: dice_loss(logits, labels)
+        return lambda logits, labels: dice_loss(logits, labels, mesh=mesh)
     if loss_type == "Combined":
-        return lambda logits, labels: (focal_loss(logits, labels, w)
-                                       + weighted_ce_loss(logits, labels, w))
+        return lambda logits, labels: (
+            focal_loss(logits, labels, w, mesh=mesh)
+            + weighted_ce_loss(logits, labels, w, mesh=mesh))
     raise ValueError("`loss_type` not recognized")
 
 
@@ -195,24 +223,28 @@ def _model_input(config: dict):
     return inputs
 
 
-def make_train_step(config: dict):
+def make_train_step(config: dict, mesh=None):
     """-> ``train_step(state, data, labels, gen, meta=None)``: data
     (B, C, H, W) raw sv float32, labels (B, H, W) raw int32 codes, ``gen``
     the augmentation's device generator, ``meta`` the (B, M, H, W) float32
     metadata crops when the config has metadata channels.  Updates
-    ``state`` in place and returns the loss (a device scalar)."""
-    loss_fn = make_loss_fn(config)
+    ``state`` in place and returns the loss (a device scalar).  Under a
+    ``mesh`` the batch is this rank's rows of the global batch and the
+    loss returned is the global one."""
+    loss_fn = make_loss_fn(config, mesh)
     lr_at = make_lr_schedule(config)
     inputs = _model_input(config)
     use_meta = get_in_channels(config.get("meta_channels")) > 0
+    # the global batch's draws, this rank's rows
+    shard = {} if mesh is None else {"shard": (mesh.rank, mesh.size)}
 
     def train_step(state: TrainState, data, labels, gen, meta=None):
         # augment looked up at call time: tests replace it by the identity
         if use_meta:
-            data, meta, labels = augment.augment_train_meta(gen, data, meta,
-                                                            labels)
+            data, meta, labels = augment.augment_train_meta(
+                gen, data, meta, labels, **shard)
         else:
-            data, labels = augment.augment_train(gen, data, labels)
+            data, labels = augment.augment_train(gen, data, labels, **shard)
         labels = _train_labels(data, labels, -1)
         data, labels = data_ops.data_transform_train(data, labels,
                                                      scaled=use_meta)
@@ -221,12 +253,13 @@ def make_train_step(config: dict):
         for group in opt.param_groups:
             group["lr"] = lr_at(state.step)
         x, m = inputs(data, meta)
-        loss = loss_fn(model(x, meta=m), labels)
+        loss = loss_fn(model(x, meta=m, mesh=mesh), labels)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        all_reduce_grads_(model, mesh)
         opt.step()
         state.step += 1
-        return loss.detach()
+        return all_reduce_(loss.detach(), mesh)
 
     return train_step
 
@@ -248,14 +281,14 @@ def _pool_gather(config: dict):
     return gather
 
 
-def make_train_step_pooled(config: dict):
+def make_train_step_pooled(config: dict, mesh=None):
     """The train step over a device sample pool (data/device_pool.py):
     ``train_step(state, pool_data, pool_labels, ech_idx, starts, gen,
     meta_vectors=None, flags=())``, the pool's metadata vectors and flags
     with metadata channels; gathers the crops (and the metadata crops) on
     the device, then runs :func:`make_train_step`'s step."""
     gather = _pool_gather(config)
-    base = make_train_step(config)
+    base = make_train_step(config, mesh)
 
     def train_step(state, pool_data, pool_labels, ech_idx, starts, gen,
                    meta_vectors=None, flags=()):
@@ -266,13 +299,16 @@ def make_train_step_pooled(config: dict):
     return train_step
 
 
-def make_eval_step(config: dict):
+def make_eval_step(config: dict, mesh=None):
     """-> ``eval_step(model, hist, data, labels, seabed_row, overlap=0,
     with_loss=True, meta=None)``: the validation step on raw crops (label
     test chain, data test chain, eval forward, loss on ignore-collapsed
     labels, PR histogram update into ``hist`` in place), ``meta`` the
-    metadata crops with metadata channels.  Returns ``(hist, loss)``."""
-    loss_fn = make_loss_fn(config)
+    metadata crops with metadata channels.  Returns ``(hist, loss)``.
+    Under a ``mesh`` the loss is the global batch's and ``hist`` holds
+    this rank's counts: the caller sums it over the ranks
+    (``all_reduce_``) before reading a curve from it."""
+    loss_fn = make_loss_fn(config, mesh)
     inputs = _model_input(config)
     use_meta = get_in_channels(config.get("meta_channels")) > 0
 
@@ -288,20 +324,21 @@ def make_eval_step(config: dict):
         probs = torch.softmax(logits, dim=-1)
         loss = torch.zeros((), device=logits.device)
         if with_loss:
-            loss = loss_fn(logits, label_ops.set_label_ignore_val(labels_t))
+            loss = all_reduce_(loss_fn(
+                logits, label_ops.set_label_ignore_val(labels_t)), mesh)
         metrics.update_pr_histogram(hist, probs[..., 1], labels_t)
         return hist, loss
 
     return eval_step
 
 
-def make_eval_step_pooled(config: dict):
+def make_eval_step_pooled(config: dict, mesh=None):
     """The validation step over a device sample pool: ``eval_step(model,
     hist, pool_data, pool_labels, ech_idx, starts, seabed_row, overlap=0,
     with_loss=True, meta_vectors=None, flags=())``; the seabed rows stay
     host-computed."""
     gather = _pool_gather(config)
-    base = make_eval_step(config)
+    base = make_eval_step(config, mesh)
 
     def eval_step(model, hist, pool_data, pool_labels, ech_idx, starts,
                   seabed_row, overlap=0, with_loss=True, meta_vectors=None,

@@ -139,7 +139,7 @@ def evaluate_reader(runner: GriddedRunner, reader, hist, eval_mode="all",
         # reference grid) and the sub-batch pad below
         live = np.repeat(np.arange(R) < R_ref, Cc)
         starts = np.stack([y0s, x0s, patch_y0_data, live]).astype(np.int32)
-        _, Np, _ = runner._sub_batch_shape(len(y0s))
+        _, Np, _ = runner._eval_sub_batch_shape(len(y0s))
         starts = np.pad(starts, ((0, 0), (0, Np - len(y0s))))
         if runner.use_meta:
             # memmap only: the builder raises ValueError on a zarr reader

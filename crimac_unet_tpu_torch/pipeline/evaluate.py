@@ -8,7 +8,10 @@ Reference surface (pipeline_train_predict/evaluate.py:120-167): per
 evaluation survey, sliding-window metrics in the configured eval mode
 (all/region/fish->trace) written as ``<survey>_test.csv`` and
 ``<survey>_pr.png`` (the plot needs matplotlib) under
-``<save_path>/<experiment>/<checkpoint-run>/``.
+``<save_path>/<experiment>/<checkpoint-run>/``.  Under torchrun
+(``torchrun --nproc_per_node N -m crimac_unet_tpu_torch.pipeline.
+evaluate ...``) every rank evaluates its share of each sub-batch, the
+histograms are summed over the ranks, and rank 0 writes and prints.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import os
 
 from ..constants import EVAL_MODE_MAP
 from ..ops import metrics as M
+from ..parallel.mesh import barrier, is_writer
 from .eval_gridded import evaluate_reader
 from .infer_common import grid_height_for_reader
 from .segpipe import save_metrics_dict, save_pr_plot
@@ -40,12 +44,15 @@ def evaluate_survey(runner, readers, eval_mode, save_path_metrics=None,
                                eval_mode=EVAL_MODE_MAP[eval_mode],
                                progress=progress, fixed_R=fixed_R)
     curve = M.pr_curve_from_histogram(hist)
-    if save_path_metrics is not None:
-        save_metrics_dict(curve, save_path_metrics)
-    if save_path_plot is not None:
-        save_pr_plot(curve, save_path_plot)
-    f1, _ = M.max_f1(curve)
-    print(f"F1 score: {f1}")
+    # every rank holds the same histogram; rank 0 writes and prints
+    if is_writer():
+        if save_path_metrics is not None:
+            save_metrics_dict(curve, save_path_metrics)
+        if save_path_plot is not None:
+            save_pr_plot(curve, save_path_plot)
+        f1, _ = M.max_f1(curve)
+        print(f"F1 score: {f1}")
+    barrier()
     return curve
 
 

@@ -11,7 +11,9 @@ pinned buffer with an event that ``_drain`` waits on, ``pipeline_depth``
 chunks behind, and the zarr writer appends it to the prediction store
 from one ordered writer thread.  ``static_grid`` runs every chunk of a
 reader (or of a survey, through ``fixed_R``/``fixed_C``) on one grid
-shape.
+shape.  With a data mesh on the runner, every rank reads and stages every
+chunk (the host pipeline is deterministic), runs its share of the device
+work, and rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..utils.preload_split import get_data_split
 from .infer_common import (_U8_PROB_DEQUANT, _fill_hwc_slab,
                            _grid_extent_rows, _quantize_db_u8, _round_up,
                            grid_center_cols, grid_height_for_reader)
+from ..parallel.mesh import barrier, broadcast_object, is_writer
 from .runner import GriddedRunner, _build_meta_inputs, _build_meta_slab_full
 
 
@@ -498,16 +501,19 @@ def save_survey_predictions_zarr(runner, reader, target_dname,
     n_pings, n_range = reader.shape if reader.data_format == "zarr" else \
         (reader.shape[1], reader.shape[0])
 
+    # in a process group every rank predicts every chunk and rank 0 writes
+    writes = is_writer()
     group = None
     start_ping = 0
-    if not resume_writing:
+    if writes and not resume_writing:
         if os.path.isdir(target_dname):
             shutil.rmtree(target_dname)
-    elif os.path.isdir(target_dname):
+    elif writes and os.path.isdir(target_dname):
         group = ZGroup.open(target_dname)
         start_ping = _resume_point(group, target_dname, save_labels)
     # else: a resume over a survey whose previous run died before this
     # reader's store existed starts it fresh
+    start_ping = broadcast_object(start_ping)
 
     def write_chunk(s, e, out, lab):
         nonlocal group
@@ -558,10 +564,12 @@ def save_survey_predictions_zarr(runner, reader, target_dname,
     try:
         for s, e, out, lab in predict_reader(runner, reader,
                                              preload_n_pings, start_ping,
-                                             progress,
+                                             progress and writes,
                                              save_labels=save_labels,
                                              fixed_R=fixed_R,
                                              fixed_C=fixed_C):
+            if not writes:
+                continue
             if pending_write is not None:
                 pending_write.result()  # re-raises writer errors in order
             pending_write = writer.submit(write_chunk, s, e, out, lab)
@@ -574,6 +582,7 @@ def save_survey_predictions_zarr(runner, reader, target_dname,
     # pre-existing snapshot, so a crash never leaves a stale one
     if group is not None:
         group.consolidate()
+    barrier()
     return target_dname
 
 
@@ -585,13 +594,17 @@ def save_reader_predictions_memm(runner, reader, target_dname,
     resuming).  ``fixed_R``/``fixed_C``: the survey-level static grid
     (memm surveys run one file per echogram)."""
     import os
-    if resume_writing and os.path.isfile(target_dname):
+    # in a process group every rank predicts and rank 0 writes
+    writes = is_writer()
+    if broadcast_object(resume_writing and os.path.isfile(target_dname)):
         return target_dname
     n_range, n_pings = reader.shape
     out = np.zeros((2, n_range, n_pings), np.float16)
     for s, e, chunk, _ in predict_reader(runner, reader, preload_n_pings, 0,
-                                         progress, fixed_R=fixed_R,
-                                         fixed_C=fixed_C):
+                                         progress and writes,
+                                         fixed_R=fixed_R, fixed_C=fixed_C):
         out[:, :, s:e] = chunk
-    np.save(target_dname, out)
+    if writes:
+        np.save(target_dname, out)
+    barrier()
     return target_dname

@@ -11,6 +11,16 @@ test label chain, with the closing kernel, + forward + PR histogram
 update), each with the metadata channels (early or late inject) when
 ``meta_channels`` is set, and the host builders of those channels.
 Driven by pipeline/predict.py and pipeline/eval_gridded.py.
+
+``mesh_devices`` (default 1; 0 = every rank of the process group) runs
+the chunk programs data parallel over ``torch.distributed``
+(parallel/mesh.py), as the JAX runner does over its device mesh: every
+rank holds the whole chunk slab, gathers and forwards its own share of
+each sub-batch's patches and all-gathers the probabilities; evaluation
+gives each rank whole sub-batches and sums the chunk's histogram over
+the ranks; slab mode splits the ping axis, each rank forwarding its
+range plus a receptive-field halo.  Every rank then holds the same
+outputs.
 """
 
 from __future__ import annotations
@@ -24,11 +34,14 @@ import torch.nn.functional as F
 from ..constants import LABEL_BOUNDARY_VAL, LABEL_IGNORE_VAL, SEABED_PAD
 from ..data.meta_channels import get_in_channels, validate_meta_channels
 from ..models.fold_bn import fold_for_serving
+from ..models.unet import slab_halo
 from ..models.weights import to_tensors
 from ..ops import data_ops, label_ops, metrics
 from ..ops.gather_db import gather_db
 from ..ops.label_ops import BIG_ROW
 from ..ops.stitch import stitch_patches
+from ..parallel.mesh import (all_gather_cat, all_reduce_, get_mesh,
+                             mesh_rank, mesh_size)
 from ..utils.general import PhaseTimer
 from .infer_common import _quantize_prob_u8, _round_up, _unpack_bits
 
@@ -45,15 +58,18 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def sub_batch_shape(N: int, fwd_batch: int) -> tuple[int, int, int]:
+def sub_batch_shape(N: int, fwd_batch: int,
+                    hard: int = 1) -> tuple[int, int, int]:
     """Split N patches into ``nb`` sub-batches of size ``B`` (padded
     total ``Np = nb*B``), minimizing padding waste subject to an 8-patch
     granularity: ``nb = ceil(N/fwd_batch)``, then ``B = ceil(N/nb)``
-    rounded up to 8 when that fits under the ``fwd_batch`` cap (which
-    bounds peak activation memory).  Returns ``(B, Np, nb)``."""
+    rounded up to ``hard`` (the mesh size: every rank takes ``B/hard``),
+    then to 8 (a multiple of ``hard``) when that fits under the
+    ``fwd_batch`` cap (which bounds peak activation memory).  Returns
+    ``(B, Np, nb)``."""
     nb = max(1, -(-N // max(fwd_batch, 1)))
-    B = -(-N // nb)
-    soft = _round_up(B, 8)
+    B = _round_up(-(-N // nb), hard)
+    soft = _round_up(B, _round_up(8, hard))
     if soft <= max(fwd_batch, B):
         B = soft
     return B, nb * B, nb
@@ -112,6 +128,14 @@ class GriddedRunner:
         self.stride = (wh - 2 * self.overlap, ww - 2 * self.overlap)
         self._grid_cache: dict = {}
         self._origin = torch.zeros(1, dtype=torch.int32, device=self.device)
+        # data parallel over the process group's ranks (None: alone);
+        # more ranks than the group holds raise (parallel/mesh.get_mesh)
+        self.mesh = get_mesh(int(config.get("mesh_devices", 1)))
+        self.fwd_batch = _round_up(self.fwd_batch, mesh_size(self.mesh))
+        # slab mode's ping-axis halo past a range's aligned ends (96 at
+        # depth 5)
+        self.slab_halo = slab_halo(self.model.depth)
+        self._col_starts: dict = {}
         if self.infer_mode == "slab":
             # slab outputs agree with patch mode in patch interiors only
             # when the slab's pooling grid lines up with every patch's:
@@ -133,7 +157,20 @@ class GriddedRunner:
                     "(see DIVERGENCES.md)", stacklevel=2)
 
     def _sub_batch_shape(self, N: int) -> tuple[int, int, int]:
+        return sub_batch_shape(N, self.fwd_batch, mesh_size(self.mesh))
+
+    def _eval_sub_batch_shape(self, N: int) -> tuple[int, int, int]:
+        """Evaluation's split: one rank's, since every rank evaluates
+        whole sub-batches (``_eval_patches``)."""
         return sub_batch_shape(N, self.fwd_batch)
+
+    def _my_rows(self, k: int, B: int) -> slice:
+        """This rank's patches of sub-batch ``k`` (all ``B`` of them
+        alone): each rank gathers and forwards its own ``B/N`` from its
+        copy of the slab, as the JAX runner's ``_shard_nb`` does."""
+        b = B // mesh_size(self.mesh)
+        r = mesh_rank(self.mesh)
+        return slice(k * B + r * b, k * B + (r + 1) * b)
 
     def grid_starts(self, y0s: np.ndarray, x0s: np.ndarray):
         """Device copies of a grid's patch starts, zero-padded to the
@@ -191,19 +228,24 @@ class GriddedRunner:
         (Np, Mc) hold the metadata (``_build_meta_inputs``)."""
         wh, ww = self.window
         B, Np, nb = self._sub_batch_shape(N)
-        sel = torch.empty((Np, wh, ww, 2), dtype=torch.float32,
+        b = B // mesh_size(self.mesh)
+        sel = torch.empty((nb, b, wh, ww, 2), dtype=torch.float32,
                           device=self.device)
         for k in range(nb):
-            sl = slice(k * B, (k + 1) * B)
+            sl = self._my_rows(k, B)
             x = gather_db(data_slab, y0p[sl], x0p[sl], self.window,
                           border=border_ext, scaled=self.use_meta,
                           out_dtype=self.model.dtype)
             meta = self._gather_meta(meta_slab, consts[sl], y0p[sl],
                                      x0p[sl]) if self.use_meta else None
             logits = self._forward(x, meta)
-            sel[sl] = torch.softmax(logits, dim=-1)[..., 1:3]
+            sel[k] = torch.softmax(logits, dim=-1)[..., 1:3]
             self.forwards += 1
-        return stitch_patches(sel[:N], R, C, self.overlap)
+        if self.mesh is not None:
+            # one collective a chunk: (N, nb, b) rank-major -> (nb, B)
+            sel = all_gather_cat(sel[None], self.mesh).transpose(0, 1)
+        return stitch_patches(sel.reshape(Np, wh, ww, 2)[:N], R, C,
+                              self.overlap)
 
     def _predict_slab(self, data_slab, border_ext, R, C, meta_full=None):
         """Fully-convolutional whole-chunk forward (``infer_mode: slab``,
@@ -218,23 +260,48 @@ class GriddedRunner:
         ``jnp.pad``.  ``border_ext`` is the memmap data rectangle; zarr
         chunks (None) zero only outside the (Hp, Wp) grid.  ``meta_full``
         (Hp, Wp, M) holds the metadata channels of the whole grid
-        (``_build_meta_slab_full``), zero-padded to (H16, W16) here."""
+        (``_build_meta_slab_full``), zero-padded to (H16, W16) here.
+
+        Under a mesh of N ranks the ping axis is split (sequence
+        parallelism; the JAX runner shards it and lets GSPMD exchange the
+        halos): W16 rounds up to ``2**(depth-1) * N``, rank r runs K1 and
+        the U-Net on its W16/N pings plus ``halo`` pings on each inner
+        side (``slab_halo``: how far an interior output reads past an
+        aligned end, rounded up to the pooling alignment, so the window
+        keeps the global pooling grid and no interior output sees the
+        window's edge), keeps its interior and all-gathers it."""
         sh, sw = self.stride
         o = self.overlap
         Hp, Wp = R * sh + 2 * o, C * sw + 2 * o
         div = 2 ** (self.model.depth - 1)  # pooling alignment
-        H16, W16 = _round_up(Hp, div), _round_up(Wp, div)
+        n = mesh_size(self.mesh)
+        H16, W16 = _round_up(Hp, div), _round_up(Wp, div * n)
         border = border_ext if border_ext is not None else (0, Hp, 0, Wp)
-        x = gather_db(data_slab, self._origin, self._origin, (H16, W16),
-                      border=border, scaled=self.use_meta,
+        # this rank's interior [a, b) and its haloed window [c0, c1)
+        r = mesh_rank(self.mesh)
+        a, b = r * W16 // n, (r + 1) * W16 // n
+        c0, c1 = max(a - self.slab_halo, 0), min(b + self.slab_halo, W16)
+        x = gather_db(data_slab, self._origin, self._col_start(c0),
+                      (H16, c1 - c0), border=border, scaled=self.use_meta,
                       out_dtype=self.model.dtype)
         meta = None
         if self.use_meta:
-            meta = F.pad(meta_full, (0, 0, 0, W16 - Wp, 0, H16 - Hp))[None]
+            meta = F.pad(meta_full, (0, 0, 0, W16 - Wp, 0, H16 - Hp))[
+                None, :, c0:c1]
         logits = self._forward(x, meta)[0]
         self.forwards += 1
-        probs = torch.softmax(logits, dim=-1)
+        probs = torch.softmax(logits, dim=-1)[:, a - c0:b - c0]
+        if self.mesh is not None:
+            probs = all_gather_cat(probs.contiguous(), self.mesh, dim=1)
         return probs[o:o + R * sh, o:o + C * sw, 1:3]
+
+    def _col_start(self, c0: int) -> torch.Tensor:
+        """The device copy of a slab window's first column (cached)."""
+        t = self._col_starts.get(c0)
+        if t is None:
+            t = torch.full((1,), c0, dtype=torch.int32, device=self.device)
+            self._col_starts[c0] = t
+        return t
 
     def _mask_output(self, stitched, lab_bits, data_slab, sb_row,
                      n_range, n_pings, chunk_w, zarr_pad=False):
@@ -341,11 +408,19 @@ class GriddedRunner:
             thr_bool = torch.cat([thr_bool, thr_bool.new_zeros(
                 (max(grid_h - thr_bool.shape[0], 0), thr_bool.shape[1]))])
 
-        B, Np, nb = self._sub_batch_shape(N)
+        B, Np, nb = self._eval_sub_batch_shape(N)
         ar_h = torch.arange(wh, device=dev)
         ar_w = torch.arange(ww, device=dev)
-        for k in range(nb):
-            y0b, x0b, py0b, cvb = starts[:, k * B:(k + 1) * B]
+        # under a mesh each rank counts whole sub-batches, k = rank mod N,
+        # into its own histogram, summed over the ranks at the end of the
+        # group: every forward then sees what it sees on one rank, so the
+        # integer sum is the one rank's bit for bit on any device (split
+        # sub-batches run the convolutions at another batch size, whose
+        # cuDNN kernels round otherwise)
+        mine = hist if self.mesh is None else torch.zeros_like(hist)
+        for k in range(mesh_rank(self.mesh), nb, mesh_size(self.mesh)):
+            sl = slice(k * B, (k + 1) * B)
+            y0b, x0b, py0b, cvb = starts[:, sl]
             rows = (y0b[:, None] + ar_h)[:, :, None]      # (B, wh, 1)
             cols = (x0b[:, None] + ar_w)[:, None, :]      # (B, 1, ww)
             data = data_slab[rows, cols]                  # (B, wh, ww, C)
@@ -398,11 +473,12 @@ class GriddedRunner:
                                                    channels_last=True)
             meta = None
             if self.use_meta:
-                meta = self._gather_meta(meta_slab,
-                                         consts[k * B:(k + 1) * B], y0b, x0b)
+                meta = self._gather_meta(meta_slab, consts[sl], y0b, x0b)
             probs = torch.softmax(self._forward(d, meta), dim=-1)
-            metrics.update_pr_histogram(hist, probs[..., 1], lab)
+            metrics.update_pr_histogram(mine, probs[..., 1], lab)
             self.forwards += 1
+        if self.mesh is not None:
+            hist += all_reduce_(mine, self.mesh)
         return hist
 
 

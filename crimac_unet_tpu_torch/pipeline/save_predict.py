@@ -19,10 +19,11 @@ from ..config import (get_argparse_parser, load_yaml_config,
 from ..data.partition import make_partition
 from ..models.unet import build_unet
 from ..models.weights import load_checkpoint
+from ..parallel.mesh import init_distributed
 from ..utils.general import fix_seeds
 from .predict import (save_reader_predictions_memm,
                       save_survey_predictions_zarr, survey_static_grid)
-from .runner import GriddedRunner
+from .runner import GriddedRunner, resolve_device
 
 
 def run_save_predictions(config, runner, predictions_dir, progress=False,
@@ -93,6 +94,9 @@ def main(argv=None):
     os.makedirs(predictions_dir, exist_ok=True)
 
     fix_seeds(config["random_seed"])
+    # under torchrun every rank joins; mesh_devices (0 = all) shares the
+    # device work and rank 0 writes
+    init_distributed(device=resolve_device(config.get("device")))
     state_dict = load_checkpoint(config["checkpoint_path"])
     runner = GriddedRunner(build_unet(config), state_dict, config,
                            device=config.get("device"))

@@ -685,10 +685,15 @@ def school_eval_survey(runner, readers, preload_n_pings=1000,
                 if np.isfinite(m["mean_ap"])]
     metrics["mean_ap"] = float(np.mean(cat_maps)) if cat_maps \
         else float("nan")
-    if save_path_metrics is not None:
-        save_school_metrics(metrics, save_path_metrics)
-    if save_path_detections is not None:
-        save_detections_csv(inventory, save_path_detections)
+    # in a process group every rank detects the same schools; rank 0
+    # writes
+    from ..parallel.mesh import barrier, is_writer
+    if is_writer():
+        if save_path_metrics is not None:
+            save_school_metrics(metrics, save_path_metrics)
+        if save_path_detections is not None:
+            save_detections_csv(inventory, save_path_detections)
+    barrier()
     return metrics
 
 

@@ -7,9 +7,13 @@ holds the model, its SGD state and the config, runs the training loop
 with periodic validation, checkpoints ``best`` on max validation F1 and
 ``last`` at the end (the JAX package's msgpack files), and logs with the
 reference's tag names (train/loss, test/F1_score|precision|recall|loss,
-learning_rate_0) to a TensorBoard-style ``logger`` when given.  One
-device; ``mesh_devices`` above 1 waits for ROADMAP A3.  Neither pandas
-nor matplotlib is needed to write the CSV.
+learning_rate_0) to a TensorBoard-style ``logger`` when given.
+``mesh_devices`` (0 = every rank of the process group) trains data
+parallel over ``torch.distributed`` (parallel/mesh.py): every rank builds
+the same host batches and sample pools, takes its rows of each batch,
+and steps on the global batch's loss; rank 0 alone writes checkpoints,
+logs and prints.  Neither pandas nor matplotlib is needed to write the
+CSV.
 """
 
 from __future__ import annotations
@@ -26,12 +30,11 @@ from ..models.unet import build_unet, init_train_
 from ..models.weights import (load_checkpoint, read_msgpack_checkpoint,
                               to_tensors)
 from ..ops import metrics as M
+from ..parallel.mesh import (all_reduce_, barrier, broadcast_object,
+                             get_mesh, is_writer, mesh_size, replicate_)
 from ..parallel.prefetch import device_prefetch
 from . import engine
 from .runner import resolve_device
-
-MULTI_DEVICE = ("training on more than one device (mesh_devices > 1) is "
-                "ROADMAP.md queue A, A3")
 
 
 class SegPipeUNet:
@@ -39,9 +42,16 @@ class SegPipeUNet:
 
     def __init__(self, config: dict, checkpoint_dir=None):
         self.config = dict(config)
-        if int(config.get("mesh_devices", 0) or 0) > 1:
-            raise NotImplementedError(MULTI_DEVICE)
         self.device = resolve_device(config.get("device"))
+        # the data mesh (None: this process trains alone); a batch the
+        # mesh does not divide trains single-device on every rank, as
+        # the JAX package does (segpipe.py:45-50)
+        self.mesh = get_mesh(int(config.get("mesh_devices", 0) or 0))
+        n_dev = mesh_size(self.mesh)
+        if n_dev > 1 and int(config["batch_size"]) % n_dev != 0:
+            print(f"batch_size {config['batch_size']} not divisible by "
+                  f"{n_dev} devices; training single-device")
+            self.mesh = None
         self.checkpoint_dir = Path(checkpoint_dir) if checkpoint_dir else None
         # bf16 conv compute by default (f32 master params, f32 loss), as
         # the JAX package (segpipe.py:36-42); train_dtype: float32 for
@@ -52,10 +62,12 @@ class SegPipeUNet:
         self.state = None
         self.variables = None
         self.best_F1_val = -np.inf
-        self._train_step = engine.make_train_step(config)
-        self._train_step_pooled = engine.make_train_step_pooled(config)
-        self._eval_step = engine.make_eval_step(config)
-        self._eval_step_pooled = engine.make_eval_step_pooled(config)
+        self._train_step = engine.make_train_step(config, self.mesh)
+        self._train_step_pooled = engine.make_train_step_pooled(config,
+                                                                self.mesh)
+        self._eval_step = engine.make_eval_step(config, self.mesh)
+        self._eval_step_pooled = engine.make_eval_step_pooled(config,
+                                                              self.mesh)
         self._lr_schedule = engine.make_lr_schedule(config)
         self.pool = None
         self.pool_val = None
@@ -113,6 +125,7 @@ class SegPipeUNet:
                 else int(seed)
             # drawn on the CPU, so the weights do not depend on the device
             init_train_(self.model, torch.Generator().manual_seed(seed))
+        replicate_(self.mesh, self.model)
         self.state = engine.init_train_state(self.model, self.config)
         return self.state
 
@@ -139,6 +152,7 @@ class SegPipeUNet:
         self.init_model()
         engine.restore_train_state(self.state,
                                    read_msgpack_checkpoint(checkpoint_path))
+        replicate_(self.mesh, self.model, self.state.optimizer)
         extras = engine.load_checkpoint_extras(checkpoint_path)
         if "best_f1" in extras and np.isfinite(extras["best_f1"]):
             self.best_F1_val = float(extras["best_f1"])
@@ -180,7 +194,12 @@ class SegPipeUNet:
                     for n in ("last.msgpack", "best.msgpack")):
             raise FileExistsError(
                 f"model already exists at {self.checkpoint_dir}")
+        # no rank may find rank 0's first checkpoint in that check
+        barrier()
         start = self.state.step  # 0 unless resumed (resume_from)
+        writer = is_writer()
+        if not writer:
+            logger = None
 
         log_step = int(self.config["log_step"])
         lr_step = int(self.config["lr_step"])
@@ -191,8 +210,9 @@ class SegPipeUNet:
                                    + start)
 
         it = device_prefetch(train_batches, self.device,
-                             depth=int(self.config.get("prefetch_depth", 2)))
-        if progress:
+                             depth=int(self.config.get("prefetch_depth", 2)),
+                             mesh=self.mesh)
+        if progress and writer:
             try:
                 from tqdm import tqdm
             except ImportError:
@@ -227,20 +247,24 @@ class SegPipeUNet:
             if logger is not None and (i + 1) % lr_step == 0:
                 logger.add_scalar("learning_rate_0", self._lr_schedule(i + 1),
                                   global_step=i + 1)
-            if ckpt_every and self.checkpoint_dir is not None and \
-                    (i + 1) % ckpt_every == 0:
-                engine.save_checkpoint(
-                    self.checkpoint_dir / "last.msgpack", self.state,
-                    extras={"best_f1": float(self.best_F1_val)})
+            if ckpt_every and (i + 1) % ckpt_every == 0:
+                self._save("last.msgpack", self.best_F1_val)
         flush_losses(i + 1)
 
-        if self.config.get("save_model_params", True) and \
-                self.checkpoint_dir is not None:
-            engine.save_checkpoint(self.checkpoint_dir / "last.msgpack",
-                                   self.state,
-                                   extras={"best_f1": float(self.best_F1_val)})
+        if self.config.get("save_model_params", True):
+            self._save("last.msgpack", self.best_F1_val)
         self.variables = self.model.state_dict()
         return self.state
+
+    def _save(self, name, best_f1):
+        """Rank 0 of the process group writes ``name`` into the checkpoint
+        dir; every rank waits for it."""
+        if self.checkpoint_dir is None:
+            return
+        if is_writer():
+            engine.save_checkpoint(self.checkpoint_dir / name, self.state,
+                                   extras={"best_f1": float(best_f1)})
+        barrier()
 
     def validate_model_training(self, test_batches, logger, iteration_no):
         """Validation pass: streaming PR histogram + mean loss; checkpoint
@@ -251,8 +275,16 @@ class SegPipeUNet:
         hist64 = np.zeros((2, M.N_F16_BINS), np.int64)
         acc_px = 0
         losses = []
-        px = int(np.prod(self.config["patch_size"]))
-        for batch in device_prefetch(test_batches, self.device, depth=2):
+        # every rank counts its shard; the summed histogram must not
+        # wrap either
+        px = int(np.prod(self.config["patch_size"])) * mesh_size(self.mesh)
+
+        def drain(hist):
+            return all_reduce_(hist, self.mesh).cpu().numpy().astype(
+                np.int64)
+
+        for batch in device_prefetch(test_batches, self.device, depth=2,
+                                     mesh=self.mesh):
             if "ech_idx" in batch:
                 pool = self.pool_val
                 if pool is None:
@@ -269,16 +301,20 @@ class SegPipeUNet:
                 hist, loss = self._eval_step(
                     self.model, hist, batch["data"], batch["labels"],
                     batch["seabed_row"], meta=batch.get("meta"))
-                acc_px += batch["labels"].numel()
+                acc_px += batch["labels"].numel() * mesh_size(self.mesh)
             losses.append(loss)
             if acc_px > 2 ** 30:
-                hist64 += hist.cpu().numpy().astype(np.int64)
+                hist64 += drain(hist)
                 hist.zero_()
                 acc_px = 0
         self.model.train()
-        hist64 += hist.cpu().numpy().astype(np.int64)
+        hist64 += drain(hist)
         curve = M.pr_curve_from_histogram(hist64)
         f1, idx = M.max_f1(curve)
+        # rank 0's score decides the best checkpoint on every rank (ranks
+        # without a mesh score their own, equal, passes): one decision, so
+        # every rank meets _save's barrier
+        f1 = broadcast_object(f1)
         mean_loss = float(torch.stack(losses).double().mean()) \
             if losses else 0.0
 
@@ -291,12 +327,13 @@ class SegPipeUNet:
             logger.add_scalar("test/recall", float(curve["recall"][idx]),
                               global_step=step)
             logger.add_scalar("test/loss", mean_loss, global_step=step)
-        print(f"step {step}: validation F1 {f1:.4f}, loss {mean_loss:.4f}")
+        if is_writer():
+            print(f"step {step}: validation F1 {f1:.4f}, "
+                  f"loss {mean_loss:.4f}")
 
         if f1 > self.best_F1_val and self.checkpoint_dir is not None:
             self.best_F1_val = f1
-            engine.save_checkpoint(self.checkpoint_dir / "best.msgpack",
-                                   self.state, extras={"best_f1": float(f1)})
+            self._save("best.msgpack", f1)
         return f1, mean_loss
 
 

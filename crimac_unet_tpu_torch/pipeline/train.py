@@ -2,6 +2,8 @@
 
     python -m crimac_unet_tpu_torch.pipeline.train --yaml_path cfg.yaml \
         [--resume_checkpoint last.msgpack] [--device cpu]
+    torchrun --nproc_per_node N -m crimac_unet_tpu_torch.pipeline.train \
+        --yaml_path cfg.yaml             # data parallel over N devices
 
 The reference CLI surface (pipeline_train_predict/train.py:113-158), as
 the JAX package's ``crimac_unet_tpu/pipeline/train.py``: YAML + argparse
@@ -11,8 +13,10 @@ validation checkpointing (``best.msgpack`` / ``last.msgpack``, readable
 and resumable by either package).  Runs on ``cuda`` unless the config or
 ``--device`` names another device.  Trains memmap and zarr surveys
 (``data_mode``), with metadata channels early or late injected on memmap
-surveys (``meta_channels``, ``late_meta_inject``); one device
-(``mesh_devices`` above 1 raises, ROADMAP A3).
+surveys (``meta_channels``, ``late_meta_inject``).  Under torchrun every
+rank joins the process group (``init_distributed``) and ``mesh_devices``
+(0 = all ranks) trains data parallel (pipeline/segpipe.py); rank 0 writes
+the run's checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -30,16 +34,11 @@ from ..data import device_pool as dp
 from ..data.dataset import BatchPrefetcher, RandomPatchDataset
 from ..data.meta_channels import get_in_channels
 from ..data.partition import make_partition
+from ..parallel.mesh import (broadcast_object, get_mesh, init_distributed,
+                             is_writer, shutdown_distributed)
 from ..utils.general import fix_seeds, get_datetime_str
 from .runner import resolve_device
-from .segpipe import MULTI_DEVICE, SegPipeUNet
-
-
-def check_trainable(config) -> None:
-    """Raise before any survey is read for a configuration the port
-    does not train (more than one device, ROADMAP A3)."""
-    if int(config.get("mesh_devices", 0) or 0) > 1:
-        raise NotImplementedError(MULTI_DEVICE)
+from .segpipe import SegPipeUNet
 
 
 def enabled_meta(config):
@@ -121,8 +120,10 @@ def maybe_build_pool(config, readers, device, budget_mb=None, role="train"):
 
 
 def run_training(config, checkpoint_dir, logger=None, progress=True):
-    check_trainable(config)
     device = resolve_device(config.get("device"))
+    # a mesh larger than the process group raises before any survey is
+    # read (SegPipeUNet takes the same mesh)
+    get_mesh(int(config.get("mesh_devices", 0) or 0))
     fix_seeds(config["random_seed"])
     data_obj = make_partition(config)
     train_factory, test_factory, readers_train, readers_test = \
@@ -200,25 +201,31 @@ def main(argv=None):
     args = get_argparse_parser("train").parse_args(argv)
     config = parse_config_options(load_yaml_config(args.yaml_path), args)
 
+    init_distributed(device=resolve_device(config.get("device")))
     experiment_name = Path(config["yaml_path"]).stem
-    experiment_id = get_datetime_str()
+    # every rank names the run as rank 0 does
+    experiment_id = broadcast_object(get_datetime_str())
     checkpoint_dir = Path("saved_models", experiment_name, experiment_id)
     log_dir = Path("tensorboard_logs", experiment_name, experiment_id)
 
     logger = None
-    try:  # TensorBoard is optional
-        from torch.utils.tensorboard import SummaryWriter
-        logger = SummaryWriter(log_dir=str(log_dir))
-        logger.add_text("Config", config_args_to_markdown(config),
-                        global_step=0)
-        shutil.copy(args.yaml_path, log_dir)
-    except Exception as exc:  # noqa: BLE001 — logging must not stop a run
-        logger = None  # a half-initialized writer must not half-log
-        print(f"TensorBoard logging disabled: {exc}")
+    if is_writer():  # rank 0 logs; TensorBoard is optional
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            logger = SummaryWriter(log_dir=str(log_dir))
+            logger.add_text("Config", config_args_to_markdown(config),
+                            global_step=0)
+            shutil.copy(args.yaml_path, log_dir)
+        except Exception as exc:  # noqa: BLE001 — logging must not stop
+            logger = None  # a half-initialized writer must not half-log
+            print(f"TensorBoard logging disabled: {exc}")
 
     print("Data mode:", config["data_mode"])
     start = time.time()
-    run_training(config, checkpoint_dir, logger)
+    try:
+        run_training(config, checkpoint_dir, logger)
+    finally:
+        shutdown_distributed()
     print(f"Executed time for training (h): "
           f"{np.round((time.time() - start) / 3600, 2)}")
 

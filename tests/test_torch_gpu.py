@@ -488,3 +488,64 @@ def test_artifact_on_card_launches_the_kernels(cuda, tmp_path, fold_bn):
         assert cuda_lib.launches[pool] == 1
         assert sum(cuda_lib.launches.values()) == 2
         assert torch.equal(got, want), where
+
+
+@pytest.mark.gpu
+def test_nccl_world_of_one_steps_like_no_group(cuda):
+    """A CUDA rank joins over NCCL; every collective of the train step
+    runs in a world of one rank and leaves the step bit-equal to the step
+    without a group (cuDNN deterministic, TF32 off)."""
+    import torch.distributed as dist
+
+    from crimac_unet_tpu_torch.models.unet import build_unet, init_train_
+    from crimac_unet_tpu_torch.parallel import mesh as pmesh
+    from crimac_unet_tpu_torch.parallel.multihost_check import (CONFIG,
+                                                                free_port)
+    from crimac_unet_tpu_torch.pipeline import engine
+
+    rng = np.random.RandomState(4)
+    data = torch.from_numpy(rng.lognormal(np.log(3e-6), 1.5, (4, 4, 32, 32))
+                            .astype(np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.choice([0, 27, 1], (4, 32, 32)).astype(
+        np.int32)).to(cuda)
+
+    def train(mesh):
+        net = init_train_(build_unet(CONFIG),
+                          torch.Generator().manual_seed(0)).to(cuda)
+        state = engine.init_train_state(net, CONFIG)
+        step = engine.make_train_step(CONFIG, mesh)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        losses = [float(step(state, data, labels, gen)) for _ in range(2)]
+        return losses, [p.detach().clone() for p in net.parameters()]
+
+    det, tf32 = torch.backends.cudnn.deterministic, \
+        torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = train(None)
+        assert pmesh.init_distributed(
+            init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+            rank=0, device="cuda:0")
+        try:
+            assert dist.get_backend() == "nccl"
+            got = train(pmesh.get_mesh(0))
+        finally:
+            pmesh.shutdown_distributed()
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert got[0] == want[0]
+    for g, w in zip(got[1], want[1]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_the_card_step_like_one(cuda):
+    """Two ranks on the one card (gloo over CUDA tensors) against one
+    process on the whole batch: loss and parameter checksum within rtol
+    1e-5 (``multihost_check``)."""
+    from crimac_unet_tpu_torch.parallel.multihost_check import \
+        run_two_process_check
+    res = run_two_process_check(timeout=300, device="cuda")
+    assert np.isfinite(res["loss"]) and res["checksum"] > 0

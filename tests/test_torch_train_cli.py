@@ -7,8 +7,8 @@ overwrite protection, the device pool on and off giving the same
 training.  Zarr surveys (pooled and from host crops, the same training)
 and metadata channels (early and late inject, pooled and from host
 crops) at depth 2, start_filts 4, patch 32.  What the port refuses:
-metadata on zarr surveys (``ValueError``, memmap-only) and more than one
-device (``NotImplementedError`` naming ROADMAP A3).  The JAX package
+metadata on zarr surveys (``ValueError``, memmap-only) and a mesh of more
+devices than the process group holds (``ValueError`` from ``get_mesh``).  The JAX package
 loads the port's ``best.msgpack`` for serving.
 """
 
@@ -177,7 +177,7 @@ def test_meta_training_runs(survey, tmp_path, late, pooled):
       "use_device_pool": "auto"}, ValueError, "memmap-only"),
     ({"data_mode": "zarr", "meta_channels": META_CHANNELS_ALL,
       "use_device_pool": True}, ValueError, "cannot pool"),
-    ({"mesh_devices": 2}, NotImplementedError, "A3")])
+    ({"mesh_devices": 2}, ValueError, r"get_mesh\(2\) but only 1 process")])
 def test_untrained_configs_raise(zarr_root, tmp_path, change, exc, match):
     with pytest.raises(exc, match=match):
         train.run_training(_small(path_to_zarr_files=str(zarr_root),
