@@ -148,13 +148,32 @@ raises and the script exits nonzero without its result line:
     miss), the stores written by rank 0 alone, and every rank's K1-K4
     launches checked per path (``par2_<path>_r<rank>``,
     ``par1_<path>``, ``par_nccl1_train``);
+17. offline onboarding at full width: the phase-4 echogram written as an
+    EK60 cruise directory (``fixtures.write_raw_trio``: 16 000 RAW0
+    datagrams of int16 power, a .bot, a .snap with one rectangle per
+    school box) and onboarded (``convert_survey_raw`` ->
+    ``convert_survey_tree`` -> ``batch_estimate_seabed``), each step's
+    wall printed; the onboarded echogram (1000, 4000), its sv within half
+    an int16 power step of the source, its labels nonzero exactly inside
+    the boxes; then ``ob``, ``run_save_predictions`` of it with phase 4's
+    config and weights (K1 = K3 = phase 4's, the store finite in [0, 1],
+    ``regrid_prediction`` of it onto its own grid bit for bit, the
+    difference to phase 4's store printed and bounded), ``oe``,
+    ``evaluate_survey`` (K4 = K3 = phase 5's), ``oz``,
+    ``echograms_to_zarr_survey`` and ``rechunk_store`` from ping chunks
+    of 1024 to 512, phase 6's config on both stores (the same write sets,
+    the annotations within 2 float16 ulp, the same launches: ``oz``,
+    ``oz512``), and ``example_production_serving`` (``oxp``) and
+    ``example_samplers`` (``oxs``) with ``--device cuda``;
 
 and then one JSON line naming every kernel with its phase-2 numbers
 (slab geometry included), its launches on the main path that runs it
 (K1-K3 phase 4, K4 phase 5) and its launches on every path
 (``launches_by_path``; ``tr``, ``tz``, ``tme`` and ``tml`` are the
 training runs of phases 12-14, ``ex``, ``exu``, ``es`` and ``em`` the
-patch, unfolded, slab and metadata artifacts of phase 15), then the last
+patch, unfolded, slab and metadata artifacts of phase 15, ``ob``, ``oe``,
+``oz``, ``oz512``, ``oxp`` and ``oxs`` the onboarded paths of phase 17),
+then the last
 line ``{"ok": true,
 "device": {...}}``.  ``--recipe baseline|fast|meta-early|meta-late|zarr``
 trains a full recipe after the selected phases (``run_recipe``) and
@@ -168,6 +187,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1260,7 +1280,7 @@ def main_setup(torch, tmp):
 
 def main_config():
     """The main path's config (the baseline keys of
-    crimac_unet_tpu/configs/config_baseline.yaml, bf16 transfer)."""
+    crimac_unet_tpu_torch/configs/config_baseline.yaml, bf16 transfer)."""
     from crimac_unet_tpu_torch.config import parse_config_options
     return parse_config_options({
         "random_seed": 10, "frequencies": [18, 38, 120, 200],
@@ -3204,14 +3224,274 @@ def phase_parallel(torch, cuda_lib, tmp, card):
     return by_path, rates
 
 
+# -------------------------------------------------------------- phase 17
+# the onboarded survey against phase 4's store, over the pixels both
+# wrote: every stored probability within ONBOARD_PRED_ATOL and at most
+# ONBOARD_ARGMAX_SHARE of them with another argmax.  The onboarded sv lies
+# within half an int16 power step (0.0059 dB) of the source, under half a
+# bfloat16 step of the sv (0.017 dB), so a transferred value moves by one
+# bfloat16 step at most; both runs use the same kernels and cuDNN
+# algorithms, so what reaches the output is that input step, and the
+# network's bfloat16 probabilities move in whole bfloat16 steps (2^-8 in
+# [0.5, 1)).  Two card runs read exactly one such step (0.00390625) and
+# 45 of 3 225 320 argmax changes (PERF.md §6); the bounds are four output
+# steps, 2^-6, and 1e-4 of the pixels, 7x the reading
+ONBOARD_PRED_ATOL = 2.0 ** -6
+ONBOARD_ARGMAX_SHARE = 1e-4
+
+
+def phase_onboarding(torch, cuda_lib, tmp, reader, cfg, card, by_path,
+                     memm_store):
+    """The offline onboarding chain at full width, then the onboarded
+    survey through the prediction, evaluation and zarr paths, then the
+    serving and samplers examples on the card."""
+    import numpy as np
+    import scipy.io
+    from crimac_unet_tpu_torch.data import ek60, fixtures
+    from crimac_unet_tpu_torch.data.mat_to_memmap import convert_survey_tree
+    from crimac_unet_tpu_torch.data.memmap_reader import Echogram
+    from crimac_unet_tpu_torch.data.partition import make_partition
+    from crimac_unet_tpu_torch.data.preprocess import (
+        batch_estimate_seabed, echograms_to_zarr_survey)
+    from crimac_unet_tpu_torch.data.rechunk import rechunk_store
+    from crimac_unet_tpu_torch.data.regrid import regrid_prediction
+    from crimac_unet_tpu_torch.data.zarr_reader import DataReaderZarr
+    from crimac_unet_tpu_torch.data.zarrlite import ZGroup
+    from crimac_unet_tpu_torch.examples import (example_production_serving,
+                                                example_samplers)
+    from crimac_unet_tpu_torch.models.unet import build_unet, init_random_
+    from crimac_unet_tpu_torch.pipeline.evaluate import evaluate_survey
+    from crimac_unet_tpu_torch.pipeline.predict import \
+        save_survey_predictions_zarr
+    from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
+    from crimac_unet_tpu_torch.pipeline.save_predict import \
+        run_save_predictions
+
+    root = tmp / "onboard"
+    walls = {}
+
+    def timed(label, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        walls[label] = time.perf_counter() - t
+        print(f"onboarding: {label} {walls[label]:.3f} s [{card}]")
+        return out
+
+    # 1. the phase-4 echogram as the EK60 files of one cruise directory
+    raw = timed("raw/bot/snap write", fixtures.write_raw_trio, reader,
+                root / "cruise")
+    n_raw0 = reader.shape[1] * len(reader.frequencies)
+    print(f"onboarding: {Path(raw).name} {Path(raw).stat().st_size} bytes, "
+          f"{n_raw0} RAW0 datagrams, {reader.n_objects} snapped schools")
+
+    # 2. raw -> .mat -> memmap echogram dir -> cached seabed.  The
+    #    converter's two steps are first timed on their own: the raw parse
+    #    with the grid assembly, then the .mat write of what it returns
+    raw_dir = Path(raw).parent
+    snap = root / "cruise" / "ACOUSTIC" / "LSSS" / "INTERPRETATION" / (
+        reader.name + ".snap")
+    arrays = timed("raw parse + grid assembly", ek60.raw_to_arrays, raw,
+                   bot_path=str(raw_dir / (reader.name + ".bot")),
+                   snap_path=str(snap))
+    timed(".mat write", scipy.io.savemat, str(tmp / "onboard_split.mat"),
+          arrays, do_compression=True)
+    del arrays
+    (tmp / "onboard_split.mat").unlink()
+    res = timed("convert_survey_raw", ek60.convert_survey_raw,
+                str(root / "cruise"), str(root / "mat"))
+    check(res == {reader.name: "ok"}, f"convert_survey_raw: {res}")
+    converted = timed("convert_survey_tree (memmap conversion)",
+                      convert_survey_tree, str(root / "mat"))
+    check(converted == [reader.name], f"convert_survey_tree: {converted}")
+    ech_root = root / "mat" / "memmap"
+    onb = Echogram(str(ech_root / reader.name))
+    timed("batch_estimate_seabed", batch_estimate_seabed, [onb])
+    onb = Echogram(str(ech_root / reader.name))
+
+    # 3. the onboarded survey against its source
+    check(onb.shape == reader.shape == (1000, 4000) and onb.year == 2017,
+          f"onboarded shape {onb.shape}, year {onb.year}")
+    got = onb.data_numpy().astype(np.float64)
+    want = reader.data_numpy().astype(np.float64)
+    db_err = float(np.abs(10 * np.log10(got) - 10 * np.log10(want)).max())
+    step = 10 * np.log10(2) / 512
+    # half the int16 power step, plus float32 rounding of the stored sv
+    # (2.6e-7 dB) and of the RAW0 fields (sample interval, pulse length,
+    # absorption, beam angle: < 1e-6 dB)
+    check(db_err <= step + 2e-6,
+          f"onboarded sv off by {db_err} dB (half power step {step})")
+    boxes = np.zeros(reader.shape, bool)
+    for obj in reader.objects:
+        y0, y1, x0, x1 = obj["bounding_box"]
+        boxes[y0:y1 + 1, x0:x1 + 1] = True
+    lab = np.asarray(onb.label_memmap(heave=False))
+    check(np.array_equal(lab != 0, boxes),
+          f"onboarded labels: {int((lab != 0).sum())} nonzero px, "
+          f"{int(boxes.sum())} inside the boxes")
+    sb_same = int((onb.get_seabed() == reader.get_seabed()).sum())
+    print(f"onboarded survey {onb.shape}: sv max |d| {db_err:.6g} dB "
+          f"(half power step {step:.6g}), labels nonzero exactly in the "
+          f"{reader.n_objects} boxes ({int(boxes.sum())} px), seabed equal "
+          f"on {sb_same} of {onb.shape[1]} pings")
+
+    # 4. ob: the prediction main path on the onboarded survey
+    sd = init_random_(build_unet(cfg), torch.Generator().manual_seed(
+        SEED)).state_dict()
+    runner = GriddedRunner(build_unet(cfg), sd, cfg)
+    out = root / "preds"
+    out.mkdir()
+    cuda_lib.reset_launches()
+    t = time.perf_counter()
+    run_save_predictions(cfg, runner, str(out), path_to_echograms=str(
+        ech_root))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    ob, fwd = dict(cuda_lib.launches), runner.forwards
+    mp = by_path["memm_predict"]
+    check(fwd > 0 and ob["gather_db"] == ob["relu_pool_skip"] == fwd
+          and ob["gather_db"] == mp["gather_db"]
+          and ob["relu_pool_skip"] == mp["relu_pool_skip"],
+          f"ob: launches {ob} for {fwd} forwards, phase 4's {mp}")
+    pred = np.load(out / f"{onb.name}_pred.npy")
+    check(pred.shape == (2,) + onb.shape and pred.dtype == np.float16
+          and np.isfinite(pred).all() and pred.min() >= 0
+          and pred.max() <= 1 and (pred != 0).any(),
+          f"ob: prediction {pred.shape} {pred.dtype}")
+    for k in range(2):
+        back = regrid_prediction(pred[k], onb)
+        check(np.array_equal(back.astype(np.float16), pred[k])
+              and np.array_equal(back, pred[k].astype(back.dtype)),
+              "regrid_prediction of the stored map moved it")
+    # against phase 4's store: the onboarded sv and seabed differ a little
+    # from the source's, so the write masks differ where the seabed does
+    ref = np.load(memm_store / f"{reader.name}_pred.npy")
+    w_on, w_ref = pred[0] != 0, ref[0] != 0
+    both = w_on & w_ref
+    d = np.abs(pred.astype(np.float32) - ref.astype(np.float32))[:, both]
+    cls = lambda p: np.argmax(np.concatenate(
+        [1 - p.astype(np.float32).sum(0, keepdims=True),
+         p.astype(np.float32)]), axis=0)[both]
+    flips = int((cls(pred) != cls(ref)).sum())
+    moved = int((w_on != w_ref).sum())
+    moved_pings = int((w_on != w_ref).any(axis=0).sum())
+    print(f"ob: {fwd} forwards, launches {ob}, {dt:.3f} s = "
+          f"{onb.shape[1] / dt:.1f} pings/s; against phase 4's store: "
+          f"write masks differ on {moved} px in {moved_pings} pings "
+          f"(seabed differs on "
+          f"{onb.shape[1] - sb_same} pings), over the {int(both.sum())} px "
+          f"both wrote: max |dprob| {float(d.max()):.6g}, mean "
+          f"{float(d.mean()):.3g}, argmax changes {flips} [{card}]")
+    check(float(d.max()) <= ONBOARD_PRED_ATOL
+          and flips <= ONBOARD_ARGMAX_SHARE * both.sum(),
+          f"ob against phase 4: max |dprob| {float(d.max())}, {flips} "
+          f"argmax changes")
+
+    # 5. oe: gridded evaluation of the onboarded survey
+    ecfg = dict(cfg, eval_mode="all", partition_predict="selected surveys",
+                evaluation_surveys=[2017], transfer_dtype="bfloat16")
+    part = make_partition(ecfg, path_to_echograms=str(ech_root))
+    readers = part.get_survey_readers(part.get_evaluation_surveys()[0])
+    check(len(readers) == 1, f"oe: partition found {len(readers)} readers")
+    runner = GriddedRunner(build_unet(ecfg), sd, ecfg)
+    cuda_lib.reset_launches()
+    t = time.perf_counter()
+    curve = evaluate_survey(runner, readers, "all")
+    torch.cuda.synchronize()
+    edt = time.perf_counter() - t
+    oe, efwd = dict(cuda_lib.launches), runner.forwards
+    me = by_path.get("memm_eval")
+    check(efwd > 0 and oe["binary_closing"] == oe["relu_pool_skip"] == efwd
+          and oe["gather_db"] == 0 and oe["maxpool2x2"] == 0
+          and (me is None or oe == me),
+          f"oe: launches {oe} for {efwd} sub-batches (phase 5: {me})")
+    f1 = float(curve["F1"].max())
+    check(np.isfinite(curve["F1"]).all() and 0 <= f1 <= 1
+          and np.isfinite(curve["precision"]).all()
+          and np.isfinite(curve["recall"]).all(),
+          f"oe: F1 {f1}")
+    print(f"oe: {efwd} sub-batches, launches {oe}, {edt:.3f} s = "
+          f"{onb.shape[1] / edt:.1f} pings/s, max F1 {f1:.6f} [{card}]")
+
+    # 6. oz: zarr conversion, rechunk 1024 -> 512 pings, prediction from
+    #    both stores
+    zdir = root / "zarr"
+    timed("echograms_to_zarr_survey", echograms_to_zarr_survey, [onb],
+          str(zdir / "chunk1024"), "S2017843")
+    spec = {"frequency": 1, "category": 1, "ping_time": 512, "range": 1000}
+    t = time.perf_counter()
+    for part_name in ("sv", "labels", "bottom"):
+        rechunk_store(zdir / "chunk1024" / f"S2017843_{part_name}.zarr",
+                      zdir / "chunk512" / f"S2017843_{part_name}.zarr", spec)
+    for f in (zdir / "chunk1024").glob("*.csv"):
+        shutil.copyfile(f, zdir / "chunk512" / f.name)
+    walls["rechunk_store"] = time.perf_counter() - t
+    print(f"onboarding: rechunk_store x 3 {walls['rechunk_store']:.3f} s "
+          f"[{card}]")
+    zcfg = dict(cfg, data_mode="zarr")
+    zrunner = GriddedRunner(build_unet(zcfg), sd, zcfg)
+    zouts = {}
+    for chunks in ("chunk1024", "chunk512"):
+        zr = DataReaderZarr(str(zdir / chunks / "S2017843_sv.zarr"))
+        check(zr.sv.chunks[1] == int(chunks[5:]),
+              f"{chunks}: sv chunks {zr.sv.chunks}")
+        target = str(zdir / f"pred_{chunks}" / "S2017843_pred.zarr")
+        f0 = zrunner.forwards
+        cuda_lib.reset_launches()
+        t = time.perf_counter()
+        save_survey_predictions_zarr(zrunner, zr, target,
+                                     preload_n_pings=zcfg["preload_n_pings"])
+        torch.cuda.synchronize()
+        zdt = time.perf_counter() - t
+        counts, zfwd = dict(cuda_lib.launches), zrunner.forwards - f0
+        zp, _ = _check_store(target, zr.shape[0], zr.shape[1],
+                             f"oz {chunks}")
+        check(zfwd > 0 and counts["gather_db"] == counts["relu_pool_skip"]
+              == zfwd, f"oz {chunks}: launches {counts} for {zfwd}")
+        zouts[chunks] = (zp, counts)
+        print(f"oz {chunks}: {zfwd} forwards, launches {counts}, "
+              f"{zdt:.3f} s = {zr.shape[0] / zdt:.1f} pings/s [{card}]")
+    (a, ca), (b, cb) = zouts["chunk1024"], zouts["chunk512"]
+    check(ca == cb, f"oz: launches {ca} (1024) vs {cb} (512)")
+    check(np.array_equal(a == 0, b == 0), "oz: write sets differ")
+    zd = np.abs(a.astype(np.float32) - b.astype(np.float32))
+    ulp = np.spacing(np.maximum(np.abs(a), np.abs(b))).astype(np.float32)
+    check(np.all(zd <= 2 * ulp), f"oz: annotation max |d| {zd.max()}")
+    same = "identical" if not zd.any() else f"within 2 ulp (max {zd.max()})"
+    print(f"oz: rechunked store's annotation {same} to the 1024-ping "
+          f"store's, write sets identical [{card}]")
+
+    # 7. the examples on the card
+    ex = {}
+    for key, mod in (("oxp", example_production_serving),
+                     ("oxs", example_samplers)):
+        cuda_lib.reset_launches()
+        t = time.perf_counter()
+        mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        ex[key] = dict(cuda_lib.launches)
+        print(f"{mod.__name__.split('.')[-1]} --device cuda: launches "
+              f"{ex[key]}, {time.perf_counter() - t:.3f} s [{card}]")
+    check(ex["oxp"]["gather_db"] == ex["oxp"]["relu_pool_skip"] > 0,
+          f"serving example: launches {ex['oxp']}")
+    check(ex["oxs"]["binary_closing"] == 1 and ex["oxs"]["gather_db"] == 0,
+          f"samplers example: launches {ex['oxs']}")
+    paths = {"ob": ob, "oe": oe, "oz": ca, "oz512": cb}
+    paths.update(ex)
+    rates = {"onboarded prediction": onb.shape[1] / dt,
+             "onboarded evaluation": onb.shape[1] / edt}
+    print("onboarding walls (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in walls.items()) + f" [{card}]")
+    return paths, rates
+
+
 RECIPES = ("baseline", "fast", "meta-early", "meta-late", "zarr")
 
 
 def run_recipe(torch, tmp, name, dtype, card):
     """A full recipe through run_training: the reference recipe on the
     memm fixture (``baseline``) or its zarr form (``zarr``), the fast
-    preset (crimac_unet_tpu/configs/config_fast_train.yaml: 3750 x 16, lr
-    0.01, lr_step 250), or the fast preset with the six metadata families
+    preset (crimac_unet_tpu_torch/configs/config_fast_train.yaml: 3750 x 16,
+    lr 0.01, lr_step 250), or the fast preset with the six metadata families
     early or late injected (scripts/meta_recipe.py: ``meta-early``,
     ``meta-late``)."""
     from crimac_unet_tpu_torch.config import META_CHANNELS_ALL
@@ -3261,9 +3541,9 @@ def main(argv=None) -> int:
         parallel_worker(int(argv[1]), int(argv[2]), argv[3])
         return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(1, 17))),
-                    help="comma-separated subset of phases 1-16 (11 needs "
-                         "4 and 6)")
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 18))),
+                    help="comma-separated subset of phases 1-17 (11 needs "
+                         "4 and 6, 17 needs 4)")
     ap.add_argument("--recipe", choices=RECIPES,
                     help="also train a full recipe (baseline: 15000 x "
                          "batch 4; fast: 3750 x 16; meta-early / meta-late: "
@@ -3277,6 +3557,8 @@ def main(argv=None) -> int:
     phases = {int(p) for p in args.phases.split(",")}
     if 11 in phases and not phases >= {4, 6}:
         ap.error("phase 11 reads the stores of phases 4 and 6")
+    if 17 in phases and 4 not in phases:
+        ap.error("phase 17 holds the onboarded survey to phase 4's store")
 
     import torch
     if not torch.cuda.is_available():
@@ -3353,6 +3635,11 @@ def main(argv=None) -> int:
             rates.update(r)
         if 16 in phases:
             paths, r = phase_parallel(torch, cuda_lib, tmp, card)
+            by_path.update(paths)
+            rates.update(r)
+        if 17 in phases:
+            paths, r = phase_onboarding(torch, cuda_lib, tmp, reader, cfg,
+                                        card, by_path, memm_store)
             by_path.update(paths)
             rates.update(r)
         if args.recipe:

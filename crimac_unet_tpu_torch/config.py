@@ -63,10 +63,10 @@ CONFIG_DEFAULTS = {
     "device": None,               # None = cuda (raises without a card)
 }
 
-# The production serving preset, crimac_unet_tpu/configs/config_serving.yaml,
-# as a dict for hosts without pyyaml: zarr surveys, the fully-convolutional
-# slab forward, one grid shape per survey, uint8 dB codes in and uint8
-# probability codes out.
+# The production serving preset, the port's
+# crimac_unet_tpu_torch/configs/config_serving.yaml, as a dict for hosts
+# without pyyaml: zarr surveys, the fully-convolutional slab forward, one
+# grid shape per survey, uint8 dB codes in and uint8 probability codes out.
 SERVING_PRESET = {
     "random_seed": 10, "frequencies": [18, 38, 120, 200],
     "data_mode": "zarr", "num_workers": 4, "patch_size": [256, 256],
@@ -90,7 +90,7 @@ SERVING_PRESET = {
 }
 
 # The six metadata channel families of
-# crimac_unet_tpu/configs/config_meta_train.yaml (7 input bands).
+# crimac_unet_tpu_torch/configs/config_meta_train.yaml (7 input bands).
 META_CHANNELS_ALL = {
     "portion_year": True, "portion_day": True, "time_diff": True,
     "depth_rel": True, "depth_abs_surface": True, "depth_abs_seabed": True,

@@ -21,9 +21,11 @@ import os
 import pickle
 
 import numpy as np
-from scipy import ndimage
 
 from ..constants import DEFAULT_FREQUENCIES
+# the school objects are built by the production converter, so the
+# fixtures carry exactly the fields the real .mat onboarding produces
+from .mat_to_memmap import objects_from_label_image
 
 
 def _save_pickle(folder, name, obj):
@@ -87,38 +89,6 @@ def make_synthetic_echogram(H, W, rng, frequencies=DEFAULT_FREQUENCIES,
 
     heave = rng.uniform(-0.05, 0.05, size=W)
     return data, labels, heave, seabed
-
-
-# the school objects are built with the production converter's law
-# (crimac_unet_tpu/data/mat_to_memmap.py objects_from_label_image), so the
-# fixtures carry exactly the fields the real .mat onboarding produces
-def objects_from_label_image(label_img: np.ndarray) -> list:
-    """Connected components per fish type -> reference 'objects' dicts
-    (generate_memmap_files.py:128-156)."""
-    objects = []
-    for fish_type_ind in np.unique(label_img):
-        if fish_type_ind == 0:
-            continue
-        labeled_img, n_components = ndimage.label(label_img == fish_type_ind)
-        # bounded memory: per-component bbox slices from find_objects +
-        # argwhere restricted to each slice, instead of a full-image int64
-        # index cube (~4 GB at survey scale) rescanned once per component
-        slices = ndimage.find_objects(labeled_img)
-        for i in range(1, n_components + 1):
-            sl = slices[i - 1]
-            local = np.argwhere(labeled_img[sl] == i)
-            idx = local + np.array([sl[0].start, sl[1].start])
-            bbox = [int(idx[:, 0].min()), int(idx[:, 0].max()),
-                    int(idx[:, 1].min()), int(idx[:, 1].max())]
-            area = (bbox[1] - bbox[0] + 1) * (bbox[3] - bbox[2] + 1)
-            objects.append({
-                "fish_type_index": int(fish_type_ind),
-                "indexes": idx,
-                "n_pixels": int(idx.shape[0]),
-                "bounding_box": bbox,
-                "labeled_as_segmentation": area != idx.shape[0],
-            })
-    return objects
 
 
 def write_memmap_echogram(path, name, data, labels, heave,
@@ -229,3 +199,52 @@ def make_zarr_survey(path, year=2017, n_echograms=2, H=120, W=300, seed=0,
         cats = [-1, 1, 27] + ([6] if unused_species else [])
         echograms_to_zarr_survey(echs, out_dir, survey_name, categories=cats)
     return os.path.join(out_dir, f"{survey_name}_sv.zarr")
+
+
+def write_raw_trio(reader, root):
+    """Write a memmap echogram as the EK60 files of one cruise directory:
+    ``<root>/ACOUSTIC/EK60/EK60_RAWDATA/<name>.raw`` and ``.bot``, and
+    ``<root>/ACOUSTIC/LSSS/INTERPRETATION/<name>.snap`` (the layout
+    ``ek60.convert_survey_raw`` walks).
+
+    The RAW0 power samples invert the echogram's linear sv (int16 power,
+    so a step of 10*log10(2)/256 dB), at the ping times of its
+    ``time_vector`` and its heave, transducer at the surface.  The
+    ``.snap`` holds one rectangle per school object, half a cell outside
+    its bounding box, with the object's category, so the rasterized label
+    image is nonzero exactly inside the boxes.  The ``.bot`` puts the
+    bottom at the last range sample, so the ``percentile(bottom, 98) +
+    15 m`` crop keeps every row.  Returns the ``.raw`` path."""
+    from . import ek60
+
+    rv = np.asarray(reader.range_vector, dtype=np.float64)
+    dr = float(rv[1] - rv[0])
+    c = 1500.0
+    si = 2.0 * dr / c  # the sample interval that gives the reader's range step
+    name = reader.name
+    raw_dir = os.path.join(str(root), "ACOUSTIC", "EK60", "EK60_RAWDATA")
+    snap_dir = os.path.join(str(root), "ACOUSTIC", "LSSS", "INTERPRETATION")
+    os.makedirs(raw_dir, exist_ok=True)
+    os.makedirs(snap_dir, exist_ok=True)
+    # MATLAB serial day numbers -> unix seconds
+    times = (np.asarray(reader.time_vector, np.float64) - 719529.0) * 86400.0
+    freqs = [int(f) for f in np.asarray(reader.frequencies)]
+    sv = reader.data_numpy(freqs).astype(np.float64)
+    raw = ek60.write_raw_fixture(
+        os.path.join(raw_dir, name + ".raw"), sv, freqs, times,
+        sample_interval=si, sound_velocity=c, transducer_depth=0.0,
+        heave=np.atleast_1d(np.asarray(reader.heave, np.float64)))
+    r = np.arange(sv.shape[0]) * (c * si / 2.0)
+    ek60.write_bot_fixture(os.path.join(raw_dir, name + ".bot"), times,
+                           np.full((len(times), len(freqs)), r[-1]))
+    half = c * si / 4.0
+    schools = []
+    for obj in reader.objects:
+        y0, y1, x0, x1 = obj["bounding_box"]
+        # ping columns are 1-based in the snap's x (ek60._rasterize_schools)
+        xa, xb = x0 + 0.5, x1 + 1.5
+        ya, yb = r[y0] - half, r[y1] + half
+        schools.append({"x": [xa, xb, xb, xa], "y": [ya, ya, yb, yb],
+                        "species": [(int(obj["fish_type_index"]), 1.0)]})
+    ek60.write_snap_fixture(os.path.join(snap_dir, name + ".snap"), schools)
+    return raw

@@ -14,8 +14,8 @@ frequency + label memmaps, exactly the on-disk contract of the reference
 (reference dataset.py:141-144) — callers must honour ``data_format``.
 
 The prediction path reads whole slabs through ``data_memmaps``; training
-reads one crop at a time through ``crop_data`` / ``crop_labels``.  The
-plotting hook is not part of the port yet.
+reads one crop at a time through ``crop_data`` / ``crop_labels``;
+``visualize`` renders it through :mod:`..utils.plotting` (matplotlib).
 """
 
 from __future__ import annotations
@@ -262,6 +262,11 @@ class Echogram:
             np.nan_to_num(crop, copy=False, nan=0.0, posinf=0.0, neginf=0.0)
             chans.append(crop)
         return np.stack(chans, axis=0)
+
+    def visualize(self, **kwargs):
+        """Render this echogram (reference data_reader.py:117-350)."""
+        from ..utils.plotting import visualize_echogram
+        return visualize_echogram(self, **kwargs)
 
     def crop_labels(self, center, window):
         center = list(center)

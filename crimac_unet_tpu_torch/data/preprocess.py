@@ -1,9 +1,11 @@
 """Offline preprocessing: heave reversal of memmap label files (which the
-memmap reader generates lazily) and the memmap -> zarr survey conversion.
+memmap reader generates lazily), seabed caching and the memmap -> zarr
+survey conversion.
 
 The port's copy of the JAX package's ``crimac_unet_tpu/data/
-preprocess.py`` parts (reference crimac_unet/data_preprocessing/
-generate_heave_compensation_files.py:31-63, memmap_to_zarr.py:34-171);
+preprocess.py`` (reference crimac_unet/data_preprocessing/
+generate_heave_compensation_files.py:31-63, estimate_seabed.py:24-35,
+memmap_to_zarr.py:34-171);
 the objects CSV is written with the ``csv`` module, in pandas' layout.
 """
 
@@ -87,6 +89,14 @@ def write_heave_reverted_labels(echogram, force_write: bool = False) -> None:
     fp.flush()
     del fp
     os.replace(tmp_path, path)
+
+
+def batch_estimate_seabed(echograms, force=False) -> None:
+    """Precompute + cache ``seabed.npy`` for a list of echograms
+    (reference data_preprocessing/estimate_seabed.py:24-35)."""
+    for ech in echograms:
+        ech.get_seabed(0, ech.shape[1], save_to_file=True,
+                       ignore_saved=force)
 
 
 def echograms_to_zarr_survey(echograms, out_dir, survey_name,

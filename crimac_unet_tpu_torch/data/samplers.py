@@ -4,7 +4,8 @@ The port's copy of ``crimac_unet_tpu/data/samplers.py``: the six-sampler
 battery driving class-balanced training (reference batch/samplers/*,
 wired in data/partition.py): Background, Seabed, School(sandeel),
 School(other), SchoolSeabed(sandeel), SchoolSeabed(other) with mixture
-probabilities [1, 5, 5, 5, 5, 5], in a memmap and a zarr form.  The
+probabilities [1, 5, 5, 5, 5, 5], in a memmap and a zarr form, and the
+deterministic ``Gridded`` sampler over the inference grids.  The
 draws equal the JAX package's from the same ``RandomState``, draw for
 draw.
 
@@ -291,6 +292,70 @@ class SchoolSeabedZarr(SchoolZarr):
             readers, fish_type,
             row_filter=lambda t: t["distance_to_seabed"] < max_dist_to_seabed,
             what=f"schools within {max_dist_to_seabed}px of the seabed")
+
+
+class Gridded:
+    """Deterministic sampler over the full inference grids of a reader list
+    (reference gridded.py:98-118; that class passed window/overlap into the
+    start/end positional slots of get_data_grid — a latent bug in code no
+    entry point reaches — fixed here by calling with keywords)."""
+
+    def __init__(self, readers, window_size, patch_overlap=20, mode="all"):
+        from ..ops.patches import grid_centers
+        self.readers = list(readers)
+        self.window_size = window_size
+        coords = []
+        for i, reader in enumerate(self.readers):
+            if reader.data_format == "zarr":
+                n_pings, n_range = reader.shape
+            else:
+                n_range, n_pings = reader.shape
+            sb = np.asarray(reader.get_seabed(0, n_pings))
+            # pings without a seabed estimate (degraded no-bottom-store
+            # surveys) count as full-water-column, like the pipeline grid
+            # (the raw zero vector would cap the grid at ~50 rows)
+            has = np.asarray(reader.seabed_known(0, n_pings))
+            sb = np.where(has, sb, n_range)
+            end_range = int(min(sb.max() + 50, n_range))
+            ys = grid_centers(0, end_range, window_size[0], patch_overlap)
+            xs = grid_centers(0, n_pings, window_size[1], patch_overlap)
+            if mode in ("region", "trace"):
+                xs_rel, ys_rel = [], []
+                if mode == "trace":
+                    ys_rel = list(ys)
+                for obj in reader.objects:
+                    y0, y1, x0, x1 = obj["bounding_box"]
+                    xi = sorted({int(np.abs(x0 - xs).argmin()),
+                                 int(np.abs(x1 - xs).argmin())})
+                    if mode == "region":
+                        yi = sorted({int(np.abs(y0 - ys).argmin()),
+                                     int(np.abs(y1 - ys).argmin())})
+                        for j in yi:
+                            for k in xi:
+                                ys_rel.append(ys[j])
+                                xs_rel.append(xs[k])
+                    else:
+                        xs_rel.extend(xs[k] for k in xi)
+                if mode == "trace":
+                    mesh = np.meshgrid(ys_rel, np.unique(xs_rel))
+                    pts = np.array(mesh).T.reshape(-1, 2)
+                else:
+                    pts = np.array([ys_rel, xs_rel]).T if ys_rel else \
+                        np.zeros((0, 2))
+            else:
+                pts = np.array(np.meshgrid(ys, xs)).T.reshape(-1, 2)
+            if len(pts):
+                coords.append(np.concatenate(
+                    [np.full((len(pts), 1), i), pts], axis=1))
+        self.coords_list = (np.concatenate(coords, axis=0).astype(int)
+                            if coords else np.zeros((0, 3), int))
+
+    def __len__(self):
+        return len(self.coords_list)
+
+    def get_sample(self, i):
+        ei, y, x = self.coords_list[i]
+        return [int(y), int(x)], self.readers[int(ei)]
 
 
 class BackgroundSeabed(Background):

@@ -19,7 +19,7 @@ columns, validity and seabed-distance rules and its cached
 ``<name>_objects_parsed.csv`` (pandas' ``to_csv`` layout, index column
 first).  The training accessors read the STOX transects CSV with the
 ``csv`` module too, and crop in patch orientation with boundary fill.
-The LSSS parquet rasterizer is not ported yet (ROADMAP.md queue A4).
+The LSSS ``_work.parquet`` rasterizer reads its table with pyarrow.
 """
 
 from __future__ import annotations
@@ -469,6 +469,53 @@ class DataReaderZarr:
                  for v in box]}
                 for cat, box in zip(df["category"],
                                     self.get_object_bounding_boxes())]
+
+    def visualize(self, **kwargs):
+        """Render a survey window (reference data_reader.py:895-1009)."""
+        from ..utils.plotting import visualize_echogram
+        return visualize_echogram(self, **kwargs)
+
+    def create_label_mask_from_work(self, parquet_path=None, heave=True):
+        """Rasterize an LSSS ``_work.parquet`` annotation table into a
+        (ping, range) categorical mask (reference data_reader.py:1095-1120,
+        which was broken against its own API — rewritten functionally).
+
+        Rows carry pingTime, mask_depth_upper/lower (meters) and an
+        ``ID`` whose suffix is the fish category; depths are shifted by the
+        mean transducer draft and optionally by per-ping heave.  Rows are
+        written in file order, so where two overlap the later one wins.
+        A ping time keeps microseconds, as a pandas ``Timestamp`` does
+        when it becomes a ``numpy.datetime64``.
+        """
+        import pyarrow.parquet as pq
+        if parquet_path is None:
+            parquet_path = os.path.join(self.path,
+                                        f"{self.name}_work.parquet")
+        table = pq.read_table(parquet_path)
+        ping_times = table.column("pingTime").to_numpy().astype("M8[us]")
+        uppers = table.column("mask_depth_upper").to_pylist()
+        lowers = table.column("mask_depth_lower").to_pylist()
+        ids = table.column("ID").to_pylist()
+
+        n_pings, n_range = self.shape
+        labels = np.zeros((n_pings, n_range), dtype=np.int16)
+        rv = np.asarray(self.range_vector)
+        draft = 0.0
+        if "transducer_draft" in self.ds:
+            draft = float(np.nanmean(self.ds["transducer_draft"][:]))
+
+        for t, upper, lower, fid in zip(ping_times, uppers, lowers, ids):
+            p = self.get_ping_index(t)
+            x0 = float(upper) - draft
+            x1 = float(lower) - draft
+            if heave and self.heave is not None:
+                h = float(self.heave[p])
+                x0, x1 = x0 - h, x1 - h
+            fish_id = int(str(fid).split("-")[-1])
+            i0 = int(np.searchsorted(rv, x0, side="left"))
+            i1 = int(np.searchsorted(rv, x1, side="right"))
+            labels[p, i0:i1] = fish_id
+        return labels
 
     # ----------------------------------------------------------------- crop
     def _crop_region(self, center, window):

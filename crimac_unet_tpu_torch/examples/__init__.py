@@ -1,1 +1,2 @@
-"""Walkthroughs of the port's deployment surface."""
+"""Walkthroughs of the port: onboarding, readers, samplers, serving and
+deployment."""

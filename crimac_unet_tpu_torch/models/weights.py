@@ -10,7 +10,10 @@ reads them with its own codec (utils/flax_msgpack.py) and maps them with
 :func:`flax_to_torch_state_dict`, and its trainer writes them back in the
 same layout through :func:`torch_to_flax_params` /
 :func:`torch_to_flax_variables`, so each package serves and resumes the
-other's checkpoints.
+other's checkpoints.  :func:`load_torch_checkpoint` /
+:func:`save_torch_checkpoint` are the JAX package's
+``models/torch_import.py`` names: a reference ``.pt`` file to and from
+``{"params", "batch_stats"}`` numpy variables.
 
 Layout conversion (flax <-> reference):
   Conv          (kh, kw, I, O)                      <-> (O, I, kh, kw)
@@ -192,3 +195,16 @@ def load_checkpoint(path) -> dict:
         return torch.load(path, map_location="cpu", weights_only=True)
     return to_tensors(flax_to_torch_state_dict(
         read_msgpack_checkpoint(path)))
+
+
+def load_torch_checkpoint(path) -> dict:
+    """A reference ``.pt`` state dict file -> ``{"params",
+    "batch_stats"}`` numpy variables of the JAX package's U-Net."""
+    return torch_to_flax_variables(
+        torch.load(str(path), map_location="cpu", weights_only=True))
+
+
+def save_torch_checkpoint(variables: dict, path) -> None:
+    """``{"params", "batch_stats"}`` variables -> a reference-loadable
+    ``.pt`` state dict (needs unfolded BatchNorm variables)."""
+    torch.save(to_tensors(flax_to_torch_state_dict(variables)), str(path))

@@ -20,6 +20,14 @@ def grid_dims(start: int, end: int, patch: int, overlap: int) -> int:
     return int(-(-(end - start) // stride))
 
 
+def grid_centers(start: int, end: int, patch: int, overlap: int) -> np.ndarray:
+    """Reference-identical center coordinates along one axis
+    (gridded.py:40-47)."""
+    ys_upper_left = np.arange(start - (overlap + 1), end - (overlap + 1),
+                              patch - 2 * overlap)
+    return ys_upper_left + patch // 2
+
+
 def make_grid_starts(R: int, C: int, stride_y: int, stride_x: int,
                      overlap: int, pad_top: int, pad_left: int):
     """Upper-left coords (in padded-slab coordinates) for an R x C patch grid

@@ -473,7 +473,7 @@ def gt_boxes_by_category(reader, raw_categories) -> dict:
                  "bounding_box": o["bounding_box"]}
                 for o in reader.objects]
     else:
-        from ..data.fixtures import objects_from_label_image
+        from ..data.mat_to_memmap import objects_from_label_image
         objs = objects_from_label_image(reader.label_numpy(heave=True))
     return {c: [list(o["bounding_box"]) for o in objs
                 if o["fish_type_index"] == c] for c in raw_categories}

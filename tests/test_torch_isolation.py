@@ -184,3 +184,72 @@ def test_school_eval_cli_without_device_raises_without_cuda(tmp_path,
     main(["--yaml_path", str(tmp_path / "stored.yaml")] + args)
     assert (tmp_path / "metrics" / "stored" / tmp_path.name /
             "2017_school_eval.csv").is_file()
+
+
+OPTIONAL = ("h5py", "matplotlib", "pyarrow", "pandas")
+
+
+def test_every_module_imports_without_optional_packages(tmp_path):
+    """The card's machine has no h5py, matplotlib, pyarrow or pandas:
+    every port module imports with them blocked, the onboarding chain
+    (a .snap included) runs, and each function that needs one of them
+    raises an ImportError naming it."""
+    code = """
+import importlib, pkgutil, sys
+for name in %r:
+    sys.modules[name] = None
+import numpy as np
+import crimac_unet_tpu_torch as pkg
+mods = sorted(m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + "."))
+for m in mods:
+    importlib.import_module(m)
+print("IMPORTED", len(mods))
+
+from crimac_unet_tpu_torch.data import ek60, fixtures, korona
+from crimac_unet_tpu_torch.data.mat_to_memmap import convert_survey_tree
+from crimac_unet_tpu_torch.data.memmap_reader import Echogram
+from crimac_unet_tpu_torch.data.zarr_reader import DataReaderZarr
+from crimac_unet_tpu_torch.pipeline import segpipe
+from crimac_unet_tpu_torch.utils import plotting
+tmp = sys.argv[1]
+ech = Echogram(fixtures.make_survey_dir(tmp + "/src", n_echograms=1, H=40,
+                                        W=60, seed=1)[0])
+raw = fixtures.write_raw_trio(ech, tmp + "/cruise")
+assert ek60.convert_survey_raw(tmp + "/cruise", tmp + "/mat") == {
+    ech.name: "ok"}
+assert convert_survey_tree(tmp + "/mat") == [ech.name]
+onb = Echogram(tmp + "/mat/memmap/" + ech.name)
+assert (np.asarray(onb.label_memmap(heave=False)) != 0).any()
+zr = DataReaderZarr(fixtures.make_zarr_survey(tmp + "/z", n_echograms=1,
+                                              H=40, W=60, seed=1))
+calls = {
+    "h5py": [lambda: ek60.save_transducer_depths(raw, tmp + "/d.h5"),
+             lambda: korona.get_transducer_depths(ech, root_depths=tmp)],
+    "matplotlib": [lambda: ech.visualize(), lambda: zr.visualize(),
+                   lambda: plotting.visualize_predictions_vs_labels(
+                       zr, tmp + "/none.zarr"),
+                   lambda: plotting.visualize_school_detections(ech, []),
+                   lambda: segpipe.save_pr_plot({}, tmp + "/pr.png")],
+    "pyarrow": [lambda: zr.create_label_mask_from_work(tmp + "/w.parquet")],
+}
+for name, fns in calls.items():
+    for fn in fns:
+        try:
+            fn()
+        except ImportError as exc:
+            assert name in str(exc), (name, exc)
+        else:
+            raise AssertionError(f"{fn} ran without {name}")
+print("RAISED", sum(len(v) for v in calls.values()))
+""" % (OPTIONAL,)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CUDA_HOME", "PYTHONPATH")}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=str(REPO), env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    n = sum(1 for p in PORT.rglob("*.py") if p.name != "__main__.py") - 1
+    assert f"IMPORTED {n}" in proc.stdout, proc.stdout
+    assert "RAISED 8" in proc.stdout, proc.stdout

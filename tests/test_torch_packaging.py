@@ -1,6 +1,6 @@
-"""Packaging of the port: the wheel carries the port's kernel sources and
-new modules, names its console scripts, and runs its selfcheck from an
-isolated install with the repository off the path."""
+"""Packaging of the port: the wheel carries the port's kernel sources,
+presets and new modules, names its console scripts, and runs its
+selfcheck from an isolated install with the repository off the path."""
 
 import os
 import shutil
@@ -71,6 +71,20 @@ def test_wheel_carries_the_port(wheel):
                   "crimac_unet_tpu_torch/examples/"
                   "example_aot_deployment.py"):
         assert probe in names, probe
+    # the onboarding slice: the presets, the new modules and examples
+    for probe in ("configs/config_baseline.yaml",
+                  "configs/config_fast_train.yaml",
+                  "configs/config_meta_train.yaml",
+                  "configs/config_serving.yaml", "compat.py",
+                  "data/ek60.py", "data/mat_to_memmap.py",
+                  "data/cruise_catalog.py", "data/korona.py",
+                  "data/regrid.py", "data/rechunk.py", "utils/plotting.py",
+                  "utils/interp.py", "utils/combine_functions.py",
+                  "examples/example_ek60_onboarding.py",
+                  "examples/example_production_serving.py",
+                  "examples/example_samplers.py",
+                  "examples/example_zarr_reader.py"):
+        assert f"crimac_unet_tpu_torch/{probe}" in names, probe
     assert not [n for n in names if n.endswith(".so")], names
 
 
