@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 1,12 --recipe baseline   # + a recipe
     python3 chip_smoke.py --phases 1 --recipe meta-early
     python3 chip_smoke.py --phases 1,15    # the export from random weights
+    python3 chip_smoke.py --phases 1,4,6,18   # the matrix and JAX calls
 
 Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit; imports
 nothing of JAX or of the JAX package.  Phases, in order; any failure
@@ -165,6 +166,23 @@ raises and the script exits nonzero without its result line:
     the annotations within 2 float16 ulp, the same launches: ``oz``,
     ``oz512``), and ``example_production_serving`` (``oxp``) and
     ``example_samplers`` (``oxs``) with ``--device cuda``;
+18. the configuration matrix and the JAX call surface at full width
+    (needs phases 4 and 6): the eight combinations of
+    tests/test_matrix.py (bfloat16 / uint8 transfer, uint8 output, slab
+    mode, the static grid, the serving stack) as full-survey zarr
+    predictions of phase 6's survey, then the serving stack on phase 4's
+    echogram and the early and late metadata stacks, each held to its
+    baseline (patch, float32 transfer, float16 output, per-chunk grid)
+    under its mask law and the mean and max bounds of ``MATRIX``, with
+    its pings/s and its K1 and K3 launches (``x_<name>``); then the
+    restored surface on the card: ``pool.gather`` of both pools equal to
+    ``gather_crops``, ``update_pr_histogram``'s scatter, sort and matmul
+    bit-equal on one evaluation chunk, the JAX-style
+    ``run_save_predictions(cfg, runner, data_obj, out)`` writing phase
+    6's store again (``x_save_predictions``), ``run_training(cfg, ckpt,
+    "phase18", None)`` for 20 full-width steps (``x_train``: K4 and K2),
+    and ``get_gridded_survey_sampler`` with ``eval_mode: fish`` giving
+    the trace sampler;
 
 and then one JSON line naming every kernel with its phase-2 numbers
 (slab geometry included), its launches on the main path that runs it
@@ -172,7 +190,8 @@ and then one JSON line naming every kernel with its phase-2 numbers
 (``launches_by_path``; ``tr``, ``tz``, ``tme`` and ``tml`` are the
 training runs of phases 12-14, ``ex``, ``exu``, ``es`` and ``em`` the
 patch, unfolded, slab and metadata artifacts of phase 15, ``ob``, ``oe``,
-``oz``, ``oz512``, ``oxp`` and ``oxs`` the onboarded paths of phase 17),
+``oz``, ``oz512``, ``oxp`` and ``oxs`` the onboarded paths of phase 17,
+``x_*`` the paths of phase 18),
 then the last
 line ``{"ok": true,
 "device": {...}}``.  ``--recipe baseline|fast|meta-early|meta-late|zarr``
@@ -227,6 +246,13 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def memm_partition(cfg, root):
+    """The data partition of ``cfg`` over the memmap echograms in ``root``,
+    as the save_predict CLI builds it for ``run_save_predictions``."""
+    from crimac_unet_tpu_torch.data.partition import make_partition
+    return make_partition(dict(cfg, path_to_echograms=str(root)))
 
 
 def host_ms(fn, iters=50):
@@ -786,7 +812,7 @@ def phase_pool_gathers(torch, tmp, card):
         zarr_train_fixture(tmp)), minimum_shape=256)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    pool = ZarrSamplePool(zreaders, freqs, win, "cuda")
+    pool = ZarrSamplePool(zreaders, freqs, win, device="cuda")
     torch.cuda.synchronize()
     upload = time.perf_counter() - t
     (z,) = zreaders
@@ -816,7 +842,7 @@ def phase_pool_gathers(torch, tmp, card):
     readers = [r for r in get_echograms(
         frequencies=freqs, minimum_shape=256,
         path_to_echograms=str(train_fixture(tmp))) if r.year == 2017]
-    pool = DeviceSamplePool(readers, freqs, win, "cuda",
+    pool = DeviceSamplePool(readers, freqs, win, device="cuda",
                             meta_channels=META_CHANNELS_ALL)
     samples = [(r, c) for r in readers
                for c in _edge_centers(r.shape, rng, n=4)]
@@ -1080,7 +1106,7 @@ def train_agreement(torch, reader):
               f"identical, losses {runs['cpu'][1]} vs {runs['cuda'][1]}, "
               f"worst relative update difference {worst:.2e}")
 
-        pool = DeviceSamplePool([reader], freqs, win, "cuda")
+        pool = DeviceSamplePool([reader], freqs, win, device="cuda")
         centers, d, lab = batches[0]
         idx, starts = (torch.from_numpy(a).cuda() for a in
                        pool.prepare_batch([(reader, c) for c in centers]))
@@ -1144,7 +1170,7 @@ def pooled_step_agreement(torch, reader, zreader):
             runs = {}
             for dev in ("cpu", "cuda"):
                 meta = cfg.get("meta_channels")
-                pool = cls([rdr], freqs, win, dev, meta_channels=meta)
+                pool = cls([rdr], freqs, win, meta_channels=meta, device=dev)
                 idx, starts = (torch.from_numpy(a).to(dev) for a in
                                pool.prepare_batch([(rdr, c)
                                                    for c in centers]))
@@ -1346,8 +1372,8 @@ def phase_main(torch, cuda_lib, ech_dir, reader, cfg, card):
         cuda_lib.reset_launches()
         f0 = runner.forwards
         t = time.perf_counter()
-        run_save_predictions(cfg, runner, str(out),
-                             path_to_echograms=str(ech_dir))
+        run_save_predictions(
+            cfg, runner, memm_partition(cfg, ech_dir), str(out))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         counts = dict(cuda_lib.launches)
@@ -1755,8 +1781,8 @@ def phase_static_grid(torch, cuda_lib, tmp, cfg, card):
             out.mkdir()
             cuda_lib.reset_launches()
             t = time.perf_counter()
-            run_save_predictions(scfg, runner, str(out),
-                                 path_to_echograms=str(root))
+            run_save_predictions(
+                scfg, runner, memm_partition(scfg, root), str(out))
             torch.cuda.synchronize()
             dt = time.perf_counter() - t
             counts, fwd = dict(cuda_lib.launches), runner.forwards
@@ -1827,8 +1853,8 @@ def phase_meta(torch, cuda_lib, ech_dir, reader, cfg, card):
             cuda_lib.reset_launches()
             f0 = runner.forwards
             t = time.perf_counter()
-            run_save_predictions(mcfg, runner, str(out),
-                                 path_to_echograms=str(ech_dir))
+            run_save_predictions(
+                mcfg, runner, memm_partition(mcfg, ech_dir), str(out))
             torch.cuda.synchronize()
             dt = time.perf_counter() - t
             counts, fwd = dict(cuda_lib.launches), runner.forwards - f0
@@ -2257,8 +2283,8 @@ def phase_train(torch, cuda_lib, tmp, card, iterations=400):
     readers = make_partition(scfg).get_survey_readers(2016)
     runner, _ = serve_trained(
         torch, cuda_lib, card, "tr", scfg, ck,
-        lambda r: run_save_predictions(scfg, r, str(out),
-                                       path_to_echograms=str(root)),
+        lambda r: run_save_predictions(
+            scfg, r, memm_partition(scfg, root), str(out)),
         lambda r: evaluate_survey(r, readers, "all"))
     _check_memm_preds(out, 2)
 
@@ -2402,8 +2428,8 @@ def phase_meta_train(torch, cuda_lib, tmp, card, iterations=400):
         readers = make_partition(scfg).get_survey_readers(2016)
         serve_trained(
             torch, cuda_lib, card, tag, scfg, ck,
-            lambda r: run_save_predictions(scfg, r, str(out),
-                                           path_to_echograms=str(root)),
+            lambda r: run_save_predictions(
+                scfg, r, memm_partition(scfg, root), str(out)),
             lambda r: evaluate_survey(r, readers, "all"))
         _check_memm_preds(out, 2)
         paths[tag] = counts
@@ -2824,8 +2850,8 @@ def parallel_paths(torch, cuda_lib, tmp, mesh_devices, rank):
     runner = GriddedRunner(build_unet(cfg), sd, cfg)
 
     def predict():
-        run_save_predictions(cfg, runner, str(out_dir),
-                             path_to_echograms=str(ech_dir))
+        run_save_predictions(
+            cfg, runner, memm_partition(cfg, ech_dir), str(out_dir))
     predict()                                        # warm-up
     keeps = []
     restore = recorded(runner, "_mask_output", keeps)
@@ -2951,7 +2977,7 @@ def nccl_one_rank(torch, cuda_lib, tmp, card):
     cfg = parallel_train_config(tmp, 0)
     readers, _ = make_partition(cfg).partition_data_train()
     pool = dp.DeviceSamplePool(readers, sorted(cfg["frequencies"]),
-                               tuple(cfg["patch_size"]), "cuda")
+                               tuple(cfg["patch_size"]), device="cuda")
     batches = _pooled_batches(torch, cfg, pool, NCCL_STEPS)
 
     def steps(label):
@@ -3342,8 +3368,8 @@ def phase_onboarding(torch, cuda_lib, tmp, reader, cfg, card, by_path,
     out.mkdir()
     cuda_lib.reset_launches()
     t = time.perf_counter()
-    run_save_predictions(cfg, runner, str(out), path_to_echograms=str(
-        ech_root))
+    run_save_predictions(
+        cfg, runner, memm_partition(cfg, ech_root), str(out))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
     ob, fwd = dict(cuda_lib.launches), runner.forwards
@@ -3484,6 +3510,304 @@ def phase_onboarding(torch, cuda_lib, tmp, reader, cfg, card, by_path,
     return paths, rates
 
 
+# -------------------------------------------------------------- phase 18
+# The configuration matrix of tests/test_matrix.py at full width (depth 5)
+# on the card: (name, overrides, mask law, mean bound, max bound) against
+# the exact baseline (patch, float32 transfer, float16 output, per-chunk
+# grid), each bound worked out for depth 5 from the mechanism before the
+# first card run (PERF.md §6).  The probabilities are bfloat16
+# softmax outputs near 0.3-0.5 under these seeded weights (one output step
+# 2^-9 to 2^-8).  A bfloat16 transfer moves at most 3.4 % of the
+# network's bfloat16 dB inputs by one step (0.0085 dB against steps of
+# 0.25-0.5 dB): at most 2^-6 out, four output steps, where phase 17's
+# one-step input change moved one.  The uint8 transfer moves up to half
+# of them (0.147 dB): 2^-5.  Slab mode adds the far field that patch mode
+# zero-pads: 2^-5.  The static grid changes the sub-batch and so maybe the
+# cuDNN algorithm: one output step, 2^-8.  The uint8 output rounds by at
+# most 1/510 and may only grow the zero set.  The terms add; each mean
+# bound is 4-8x the reading of a CPU rehearsal at start_filts 8-32.
+U8_OUT = 1 / 510
+MATRIX = [
+    ("bf16-static", dict(transfer_dtype="bfloat16", static_grid=True),
+     "equal", 1e-3, 2 ** -6),
+    ("u8in-static", dict(transfer_dtype="uint8", static_grid=True),
+     "equal", 2e-3, 2 ** -5),
+    ("u8out-static", dict(output_dtype="uint8", static_grid=True),
+     "grow-small", 2e-3, U8_OUT + 2 ** -8),
+    ("u8in-u8out", dict(transfer_dtype="uint8", output_dtype="uint8"),
+     "grow-small", 3e-3, 2 ** -5 + U8_OUT),
+    ("slab-static", dict(infer_mode="slab", static_grid=True),
+     "equal", 1e-3, 2 ** -5),
+    ("slab-bf16", dict(infer_mode="slab", transfer_dtype="bfloat16"),
+     "equal", 2e-3, 2 ** -5 + 2 ** -6),
+    ("serving-stack", dict(infer_mode="slab", static_grid=True,
+                           transfer_dtype="uint8", output_dtype="uint8"),
+     "grow-small", 4e-3, 2 ** -4 + U8_OUT),
+    ("serving-stack-patch", dict(static_grid=True, transfer_dtype="uint8",
+                                 output_dtype="uint8"),
+     "grow-small", 3e-3, 2 ** -5 + U8_OUT),
+]
+MEMM_STACK = ("grow-small", 4e-3, 2 ** -4 + U8_OUT)   # the serving stack
+META_STACK = ("equal", 3e-3, 2 ** -4)   # slab + static grid + uint8 in
+SURFACE_STEPS = 20            # phase 18: full-width steps of run_training
+
+
+def _matrix_check(base, out, name, law, mean_tol, max_tol):
+    """A combination's chunks against the baseline's: the same chunks,
+    finite values, the mask law, and the mean and max |dprob| over the
+    pixels both wrote.  Returns (mean, max, extra zeros)."""
+    import numpy as np
+    check([c[:2] for c in out] == [c[:2] for c in base],
+          f"{name}: chunks {[c[:2] for c in out]}")
+    diffs, extra = [], 0
+    for (_, _, p0), (_, _, p1) in zip(base, out):
+        p0, p1 = p0.astype(np.float32), p1.astype(np.float32)
+        check(np.isfinite(p1).all(), f"{name}: non-finite probabilities")
+        z0, z1 = p0 == 0, p1 == 0
+        if law == "equal":
+            check(np.array_equal(z0, z1), f"{name}: zero set differs "
+                                          f"({int((z0 != z1).sum())} px)")
+        else:
+            check(not (~z1 & z0).any(), f"{name}: the zero set shrank")
+            grown = z1 & ~z0
+            extra += int(grown.sum())
+            if grown.any():
+                top = p0[grown].max()
+                check(top < max_tol + 0.5 / 255 + 1e-3,
+                      f"{name}: zeroed a probability of {top}")
+        diffs.append(np.abs(p0 - p1)[~z0 & ~z1])
+    d = np.concatenate(diffs)
+    check(d.size > 0, f"{name}: nothing written")
+    mean, mx = float(d.mean()), float(d.max())
+    check(mean <= mean_tol and mx <= max_tol,
+          f"{name}: mean |dprob| {mean:.3e} (bound {mean_tol:.3e}), max "
+          f"{mx:.3e} (bound {max_tol:.3e})")
+    return mean, mx, extra
+
+
+def _matrix_run(torch, cuda_lib, sd, reader, cfg, label, card):
+    """A warm-up, then a timed full-survey ``predict_reader`` run of
+    ``cfg`` with the launch counters set to 0 just before and read just
+    after: (chunks, launches, pings/s)."""
+    import numpy as np
+    from crimac_unet_tpu_torch.models.unet import build_unet
+    from crimac_unet_tpu_torch.pipeline.predict import predict_reader
+    from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
+
+    runner = GriddedRunner(build_unet(cfg), sd, cfg)
+    preload = cfg["preload_n_pings"]
+    for _ in predict_reader(runner, reader, preload):
+        pass
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    f0 = runner.forwards
+    t = time.perf_counter()
+    chunks = [(s, e, np.array(p)) for s, e, p, _ in
+              predict_reader(runner, reader, preload)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    counts, fwd = dict(cuda_lib.launches), runner.forwards - f0
+    check(fwd > 0 and counts["gather_db"] == fwd
+          and counts["relu_pool_skip"] == fwd and counts["maxpool2x2"] == 0
+          and counts["binary_closing"] == 0,
+          f"{label}: launches {counts} for {fwd} forwards")
+    n_pings = reader.shape[0 if reader.data_format == "zarr" else 1]
+    return chunks, counts, n_pings / dt
+
+
+def phase_surface(torch, cuda_lib, tmp, card, ech_dir, reader, cfg, sv,
+                  zreader, zarr_pred):
+    """The configuration matrix and the restored JAX call surface at full
+    width on the card (phase 18)."""
+    import os
+    import numpy as np
+    from crimac_unet_tpu_torch.config import META_CHANNELS_ALL
+    from crimac_unet_tpu_torch.data import samplers
+    from crimac_unet_tpu_torch.data.device_pool import (DeviceSamplePool,
+                                                        ZarrSamplePool,
+                                                        gather_crops)
+    from crimac_unet_tpu_torch.data.partition import make_partition
+    from crimac_unet_tpu_torch.models.unet import build_unet, init_random_
+    from crimac_unet_tpu_torch.ops import metrics
+    from crimac_unet_tpu_torch.pipeline.eval_gridded import evaluate_reader
+    from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
+    from crimac_unet_tpu_torch.pipeline.save_predict import \
+        run_save_predictions
+    from crimac_unet_tpu_torch.pipeline.train import run_training
+
+    paths, rates = {}, {}
+    t_phase = time.perf_counter()
+    zcfg = dict(cfg, data_mode="zarr")
+    sd = init_random_(build_unet(cfg), torch.Generator().manual_seed(
+        SEED)).state_dict()
+
+    def hold(name, sd, reader, base_cfg, ov, law, mean_tol, max_tol,
+             base=None):
+        if base is None:
+            base, _, _ = _matrix_run(torch, cuda_lib, sd, reader,
+                                     dict(base_cfg, transfer_dtype="float32"),
+                                     f"{name} baseline", card)
+        out, counts, rate = _matrix_run(
+            torch, cuda_lib, sd, reader,
+            dict(dict(base_cfg, transfer_dtype="float32"), **ov), name, card)
+        mean, mx, extra = _matrix_check(base, out, name, law, mean_tol,
+                                        max_tol)
+        paths[f"x_{name}"] = counts
+        rates[f"matrix {name}"] = rate
+        print(f"matrix {name}: {law} mask law held ({extra} px newly "
+              f"zero), mean |dprob| {mean:.3e} <= {mean_tol:.3e}, max "
+              f"{mx:.3e} <= {max_tol:.3e}; launches {counts}, "
+              f"{rate:.1f} pings/s [{card}]")
+        return base
+
+    # (a) the eight combinations on the phase-6 zarr survey, then the
+    # serving stack on the phase-4 memm echogram and the metadata stacks
+    base, counts, rates["matrix baseline"] = _matrix_run(
+        torch, cuda_lib, sd, zreader, dict(zcfg, transfer_dtype="float32"),
+        "zarr baseline", card)
+    paths["x_baseline"] = counts
+    print(f"matrix baseline (zarr, patch, float32 transfer, float16 out): "
+          f"launches {counts}, {rates['matrix baseline']:.1f} pings/s "
+          f"[{card}]")
+    for name, ov, law, mean_tol, max_tol in MATRIX:
+        hold(name, sd, zreader, zcfg, ov, law, mean_tol, max_tol, base)
+    hold("memm-serving-stack", sd, reader, cfg, MATRIX[6][1], *MEMM_STACK)
+    for late in (False, True):
+        mcfg = dict(cfg, meta_channels=META_CHANNELS_ALL,
+                    late_meta_inject=late)
+        msd = init_random_(build_unet(mcfg), torch.Generator().manual_seed(
+            SEED + 5)).state_dict()
+        hold(f"meta-serving-{'late' if late else 'early'}", msd, reader,
+             mcfg, dict(infer_mode="slab", static_grid=True,
+                        transfer_dtype="uint8"), *META_STACK)
+    t_matrix = time.perf_counter() - t_phase
+
+    # (b) the restored surface on CUDA: pool.gather on both pools
+    freqs, win = sorted(cfg["frequencies"]), tuple(cfg["patch_size"])
+    rng = np.random.default_rng(SEED)
+    for pool in (DeviceSamplePool([reader], freqs, win, device="cuda"),
+                 ZarrSamplePool([zreader], freqs, win, device="cuda")):
+        _, _, Hp, Wp = pool.data.shape
+        idx = np.zeros(8, np.int32)
+        starts = np.stack([rng.integers(0, Hp - win[0] + 1, 8),
+                           rng.integers(0, Wp - win[1] + 1, 8)],
+                          1).astype(np.int32)
+        got = pool.gather(idx, starts)
+        want = gather_crops(pool.data, pool.labels, torch.from_numpy(idx),
+                            torch.from_numpy(starts), win)
+        check(got[0].is_cuda and all(torch.equal(a, b)
+                                     for a, b in zip(got, want)),
+              f"{type(pool).__name__}.gather differs from gather_crops")
+        print(f"{type(pool).__name__}.gather: 8 crops {tuple(got[0].shape)}"
+              f" bit-equal to gather_crops on the card")
+        del pool
+
+    # the three update_pr_histogram formulations on one evaluation chunk
+    first = []
+    update = metrics.update_pr_histogram
+
+    def keep_first(hist, preds, labels, impl=None):
+        if not first:
+            first.append((preds.clone(), labels.clone()))
+        return update(hist, preds, labels, impl)
+    metrics.update_pr_histogram = keep_first
+    try:
+        evaluate_reader(GriddedRunner(build_unet(zcfg), sd, zcfg), zreader,
+                        metrics.new_histogram("cuda"), eval_mode="all",
+                        chunk_cols=EVAL_CHUNK_COLS)
+    finally:
+        metrics.update_pr_histogram = update
+    preds, labels = first[0]
+    hists = {impl: update(metrics.new_histogram("cuda"), preds, labels, impl)
+             for impl in ("scatter", "sort", "matmul")}
+    times = {impl: cuda_ms(torch, lambda i=impl: update(
+        metrics.new_histogram("cuda"), preds, labels, i), iters=5, warmup=1)
+        for impl in hists}
+    check(hists["scatter"].sum() > 0
+          and all(torch.equal(h, hists["scatter"]) for h in hists.values()),
+          "update_pr_histogram: the three formulations differ")
+    print(f"update_pr_histogram on one evaluation chunk {tuple(preds.shape)}"
+          f": scatter, sort and matmul bit-equal ("
+          f"{int(hists['scatter'].sum())} scores); device ms "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+          + f" [{card}]")
+
+    # run_save_predictions(config, runner, data_obj, predictions_dir), as
+    # the JAX CLI calls it, on phase 6's survey in the nested layout
+    nested = tmp / "p18_zarr" / "2017" / "S2017843" / "ACOUSTIC"
+    nested.mkdir(parents=True)
+    os.symlink(Path(sv).parent, nested / "GRIDDED")
+    data_obj = make_partition(dict(zcfg, path_to_zarr_files=str(
+        tmp / "p18_zarr")))
+    out_dir = tmp / "p18_out"
+    out_dir.mkdir()
+    runner = GriddedRunner(build_unet(zcfg), sd, zcfg)
+    cuda_lib.reset_launches()
+    t = time.perf_counter()
+    run_save_predictions(zcfg, runner, data_obj, str(out_dir))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    paths["x_save_predictions"] = counts = dict(cuda_lib.launches)
+    n_pings, n_range = zreader.shape
+    pred, _ = _check_store(str(out_dir / f"{zreader.name}_pred.zarr"),
+                           n_pings, n_range, "run_save_predictions")
+    check(counts["gather_db"] == counts["relu_pool_skip"] ==
+          runner.forwards > 0, f"run_save_predictions: launches {counts}")
+    check(np.array_equal(pred == 0, zarr_pred == 0),
+          "run_save_predictions: write mask differs from phase 6's store")
+    diff = np.abs(pred.astype(np.float32) - zarr_pred.astype(np.float32))
+    ulp = np.spacing(np.maximum(np.abs(pred), np.abs(zarr_pred))).astype(
+        np.float32)
+    check(np.all(diff <= 2 * ulp), f"run_save_predictions: max |dprob| "
+                                   f"{diff.max()} against phase 6's store")
+    print(f"run_save_predictions(cfg, runner, data_obj, out): store equal "
+          f"to phase 6's (write mask identical, max |dprob| {diff.max()}), "
+          f"launches {counts}, {n_pings / dt:.1f} pings/s [{card}]")
+
+    # run_training(config, checkpoint_dir, experiment_name, logger)
+    tcfg = recipe_config(train_fixture(tmp), iterations=SURFACE_STEPS,
+                         log_step=SURFACE_STEPS, test_iter=4, lr_step=100,
+                         checkpoint_every=0, use_device_pool=True)
+    ck = tmp / "p18_ck"
+    cuda_lib.reset_launches()
+    t = time.perf_counter()
+    sp = run_training(tcfg, ck, "phase18", None)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    paths["x_train"] = counts = dict(cuda_lib.launches)
+    check(sp.model_name == "phase18" and sp.state.step == SURFACE_STEPS,
+          f"run_training: model_name {sp.model_name}, step {sp.state.step}")
+    check(counts["binary_closing"] == SURFACE_STEPS + 4
+          and counts["maxpool2x2"] == 4 and counts["gather_db"] == 0
+          and counts["relu_pool_skip"] == 0,
+          f"run_training: launches {counts}")
+    check((ck / "last.msgpack").is_file() and (ck / "best.msgpack").is_file(),
+          f"run_training wrote {sorted(p.name for p in ck.iterdir())}")
+    print(f"run_training(cfg, ckpt, 'phase18', None): {SURFACE_STEPS} steps "
+          f"+ 4 validation, launches {counts}, {dt:.1f} s, best F1 "
+          f"{sp.best_F1_val:.4f}, checkpoints "
+          f"{sorted(p.name for p in ck.iterdir())} [{card}]")
+
+    # get_gridded_survey_sampler with eval_mode fish: a trace sampler
+    part = make_partition(dict(cfg, eval_mode="fish",
+                               path_to_echograms=str(ech_dir)))
+    (grid,) = part.get_gridded_survey_sampler(2017)
+    kw = dict(window_size=cfg["patch_size"],
+              patch_overlap=cfg["patch_overlap"])
+    readers = part.get_survey_readers(2017)
+    trace = samplers.Gridded(readers, mode="trace", **kw)
+    full = samplers.Gridded(readers, mode="all", **kw)
+    check(0 < len(grid) < len(full)
+          and np.array_equal(grid.coords_list, trace.coords_list),
+          f"get_gridded_survey_sampler(fish): {len(grid)} centres, trace "
+          f"{len(trace)}, all {len(full)}")
+    print(f"get_gridded_survey_sampler(2017), eval_mode fish: the trace "
+          f"sampler ({len(grid)} of {len(full)} centres)")
+    print(f"phase 18: matrix {t_matrix:.1f} s, all "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return paths, rates
+
+
 RECIPES = ("baseline", "fast", "meta-early", "meta-late", "zarr")
 
 
@@ -3541,9 +3865,9 @@ def main(argv=None) -> int:
         parallel_worker(int(argv[1]), int(argv[2]), argv[3])
         return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(1, 18))),
-                    help="comma-separated subset of phases 1-17 (11 needs "
-                         "4 and 6, 17 needs 4)")
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 19))),
+                    help="comma-separated subset of phases 1-18 (11 and 18 "
+                         "need 4 and 6, 17 needs 4)")
     ap.add_argument("--recipe", choices=RECIPES,
                     help="also train a full recipe (baseline: 15000 x "
                          "batch 4; fast: 3750 x 16; meta-early / meta-late: "
@@ -3559,6 +3883,9 @@ def main(argv=None) -> int:
         ap.error("phase 11 reads the stores of phases 4 and 6")
     if 17 in phases and 4 not in phases:
         ap.error("phase 17 holds the onboarded survey to phase 4's store")
+    if 18 in phases and not phases >= {4, 6}:
+        ap.error("phase 18 runs phase 4's echogram and holds its store to "
+                 "phase 6's")
 
     import torch
     if not torch.cuda.is_available():
@@ -3587,7 +3914,7 @@ def main(argv=None) -> int:
                 torch, cuda_lib, ech_dir, reader, cfg, card)
             launches["binary_closing"] = \
                 by_path["memm_eval"]["binary_closing"]
-        if phases & {6, 7, 8, 11, 15, 16}:
+        if phases & {6, 7, 8, 11, 15, 16, 18}:
             sv, zreader = zarr_setup(torch, tmp)
         zarr_pred = None
         if 6 in phases:
@@ -3640,6 +3967,11 @@ def main(argv=None) -> int:
         if 17 in phases:
             paths, r = phase_onboarding(torch, cuda_lib, tmp, reader, cfg,
                                         card, by_path, memm_store)
+            by_path.update(paths)
+            rates.update(r)
+        if 18 in phases:
+            paths, r = phase_surface(torch, cuda_lib, tmp, card, ech_dir,
+                                     reader, cfg, sv, zreader, zarr_pred)
             by_path.update(paths)
             rates.update(r)
         if args.recipe:

@@ -336,6 +336,14 @@ def scatter_available() -> bool:
 CVT_F32_BF16 = 1  # chunkio cvt code: float32 source -> bfloat16 bits
 
 
+def scatter_cvt_available() -> bool:
+    """Whether the converting decompress + scatter (float32 chunks
+    written as bfloat16 bits, ``cvt=CVT_F32_BF16``) is loaded."""
+    lib = _load_chunkio()
+    return lib is not None and hasattr(lib,
+                                       "cio_batch_decompress_scatter_cvt")
+
+
 def f32_to_bf16_bits(x) -> np.ndarray:
     """float32 -> bfloat16 bit patterns (uint16), the law of chunkio's
     ``f32_bits_to_bf16``: round to nearest even, Inf kept, NaN quieted

@@ -21,10 +21,9 @@ zarr scrub of ``DataReaderZarr.crop_data``; the memmap
 window-taller-than-column recentering in ``prepare_center``).
 ``pool_bytes`` / ``fits_budget`` gate the pools in pipeline/train.py.
 
-    pool = DeviceSamplePool(readers, frequencies, window, device)
+    pool = DeviceSamplePool(readers, frequencies, window, device=device)
     idxs, starts = pool.prepare_batch(host_samples)
-    data, labels = gather_crops(pool.data, pool.labels, idxs, starts,
-                                pool.window)
+    data, labels = pool.gather(idxs, starts)
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ import numpy as np
 import torch
 
 from ..constants import DATA_BOUNDARY_VAL, LABEL_BOUNDARY_VAL
+from ..ops.patches import window_starts
 
 # reference metadata channel order (batch/dataset.py:288-351)
 META_ORDER = ("portion_year", "portion_day", "time_diff", "depth_rel",
@@ -146,8 +146,8 @@ def gather_meta_crops(pod, tdiff, seabed, pyear, npings, ech_idx, starts,
 class DeviceSamplePool:
     data_format = "memmap"
 
-    def __init__(self, readers, frequencies, window, device,
-                 meta_channels=None):
+    def __init__(self, readers, frequencies, window, meta_channels=None,
+                 device="cuda"):
         if not all(r.data_format == "memmap" for r in readers):
             raise ValueError(
                 "DeviceSamplePool holds memmap echograms; use "
@@ -214,6 +214,14 @@ class DeviceSamplePool:
         return (np.asarray(idxs, np.int32),
                 np.asarray(starts, np.int32))
 
+    def gather(self, ech_idx, starts):
+        """(B,) echogram indices + (B, 2) crop upper-lefts (padded
+        coordinates) -> data (B, C, wh, ww) float32, labels (B, wh, ww)
+        int32, on the pool's device."""
+        return gather_crops(self.data, self.labels,
+                            torch.as_tensor(ech_idx),
+                            torch.as_tensor(starts), self.window)
+
 
 class ZarrSamplePool:
     """Zarr surveys on the device with the same gather interface.
@@ -229,8 +237,8 @@ class ZarrSamplePool:
     meta_flags = ()
     meta_vectors = None
 
-    def __init__(self, readers, frequencies, window, device,
-                 meta_channels=None, chunk_pings=2048):
+    def __init__(self, readers, frequencies, window, meta_channels=None,
+                 chunk_pings=2048, device="cuda"):
         if not all(r.data_format == "zarr" for r in readers):
             raise ValueError("ZarrSamplePool holds zarr surveys; use "
                              "DeviceSamplePool for memmap echograms")
@@ -274,20 +282,22 @@ class ZarrSamplePool:
         return self.index[id(reader)], y0, x0
 
     prepare_batch = DeviceSamplePool.prepare_batch
+    gather = DeviceSamplePool.gather
 
 
 def gather_crops(pool_data: torch.Tensor, pool_labels: torch.Tensor,
                  ech_idx: torch.Tensor, starts: torch.Tensor, window):
     """(B,) echogram indices + (B, 2) crop upper-lefts (padded canvas
     coordinates) -> data (B, C, wh, ww) float32 and labels (B, wh, ww)
-    int32, by indexing on the pool's device.  Starts are clamped into the
-    canvas, as ``jax.lax.dynamic_slice`` clamps them in the JAX package."""
+    int32, by indexing on the pool's device.  Starts outside the canvas
+    are taken as ``jax.lax.dynamic_slice`` takes them in the JAX package
+    (``ops.patches.window_starts``)."""
     wh, ww = window
     _, _, Hp, Wp = pool_data.shape
     dev = pool_data.device
     e = ech_idx.to(dev, torch.int64)[:, None, None]
-    y0 = starts[:, 0].to(dev, torch.int64).clamp(0, Hp - wh)
-    x0 = starts[:, 1].to(dev, torch.int64).clamp(0, Wp - ww)
+    y0 = window_starts(starts[:, 0], Hp, wh, dev)
+    x0 = window_starts(starts[:, 1], Wp, ww, dev)
     rows = (y0[:, None] + torch.arange(wh, device=dev))[:, :, None]
     cols = (x0[:, None] + torch.arange(ww, device=dev))[:, None, :]
     labels = pool_labels[e, rows, cols]

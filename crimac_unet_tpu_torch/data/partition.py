@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..constants import EVAL_MODE_MAP
 from . import samplers as S
 from .memmap_reader import get_echograms
 from .zarr_reader import get_zarr_readers
@@ -25,19 +26,20 @@ _PARTITIONS = ("random", "selected surveys", "all surveys")
 
 
 class _DataPartition:
-    def __init__(self, frequencies, patch_size, partition_predict,
-                 evaluation_surveys, eval_mode, patch_overlap=20,
-                 partition_train="selected surveys", train_surveys=(),
-                 validation_surveys=(), **kwargs):
+    def __init__(self, frequencies, patch_size, partition_train,
+                 train_surveys, validation_surveys, partition_predict,
+                 evaluation_surveys, save_prediction_surveys, eval_mode,
+                 patch_overlap=20, **kwargs):
         self.frequencies = sorted(frequencies)
         self.window_size = patch_size
-        self.partition_predict = partition_predict
-        self.evaluation_surveys = evaluation_surveys
-        self.eval_mode = eval_mode
-        self.patch_overlap = patch_overlap
         self.partition_train = partition_train
         self.train_surveys = train_surveys
         self.validation_surveys = validation_surveys
+        self.partition_predict = partition_predict
+        self.evaluation_surveys = evaluation_surveys
+        self.save_prediction_surveys = save_prediction_surveys
+        self.eval_mode = eval_mode
+        self.patch_overlap = patch_overlap
 
     def get_evaluation_surveys(self):
         if self.partition_predict == "all surveys":
@@ -46,6 +48,17 @@ class _DataPartition:
             return self.evaluation_surveys
         raise ValueError(f"partition_predict options: 'selected surveys' or "
                          f"'all surveys', not {self.partition_predict}")
+
+    def get_gridded_survey_sampler(self, year):
+        """[Gridded sampler] over all of one survey's data (reference
+        partition.py:177-186 / :365-376).  The config spells trace mode
+        ``fish``; ``EVAL_MODE_MAP`` turns it into the sampler's
+        ``trace``."""
+        mode = EVAL_MODE_MAP.get(self.eval_mode, self.eval_mode)
+        return [S.Gridded(self.get_survey_readers(year),
+                          window_size=self.window_size,
+                          patch_overlap=self.patch_overlap,
+                          mode=mode)]
 
     def _check_partition(self):
         if self.partition_train not in _PARTITIONS:

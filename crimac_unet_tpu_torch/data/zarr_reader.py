@@ -216,8 +216,12 @@ class DataReaderZarr:
         return freq_idx
 
     def get_data_slice(self, idx_ping, n_pings=None, idx_range=None,
-                       n_range=None, frequencies=None):
-        """(freq, ping, range) slab (reference data_reader.py:699-752)."""
+                       n_range=None, frequencies=None, drop_na=False,
+                       return_numpy=True):
+        """(freq, ping, range) slab (reference data_reader.py:699-752).
+        ``drop_na`` drops the range rows that are NaN in every frequency
+        and ping; ``return_numpy`` is accepted for the reference's
+        signature (the slab is always numpy)."""
         freq_idx = self._freq_indices(frequencies)
         ping_sl = slice(idx_ping, None if n_pings is None
                         else idx_ping + n_pings)
@@ -225,10 +229,14 @@ class DataReaderZarr:
         if freq_idx == list(range(freq_idx[0], freq_idx[0] + len(freq_idx))):
             # contiguous frequencies (the standard 4-band read): one region
             # read -> one native batch-decompress over all chunks
-            return self.sv[freq_idx[0]:freq_idx[0] + len(freq_idx),
-                           ping_sl, rng_sl]
-        return np.stack([self.sv[f, ping_sl, rng_sl] for f in freq_idx],
-                        axis=0)
+            out = self.sv[freq_idx[0]:freq_idx[0] + len(freq_idx),
+                          ping_sl, rng_sl]
+        else:
+            out = np.stack([self.sv[f, ping_sl, rng_sl] for f in freq_idx],
+                           axis=0)
+        if drop_na:
+            out = out[:, :, ~np.all(np.isnan(out), axis=(0, 1))]
+        return out
 
     def read_data_into(self, idx_ping, n_pings, idx_range, n_range,
                        frequencies, dst, dst_index, cvt=0) -> None:
@@ -261,10 +269,12 @@ class DataReaderZarr:
         return int(matches[0])
 
     def get_label_slice(self, idx_ping, n_pings=None, idx_range=None,
-                        n_range=None, categories=None):
+                        n_range=None, drop_na=False, categories=None,
+                        return_numpy=True):
         """Overlay the per-category binary masks into one categorical
         (ping, range) mask; later categories win on overlap
-        (reference data_reader.py:754-807)."""
+        (reference data_reader.py:754-807).  ``drop_na`` and
+        ``return_numpy`` are accepted and unused, as in the reference."""
         if categories is None:
             categories = self.fish_categories
         ping_sl = slice(idx_ping, None if n_pings is None
@@ -299,9 +309,10 @@ class DataReaderZarr:
         return out
 
     def get_seabed_mask(self, idx_ping, n_pings=None, idx_range=None,
-                        n_range=None, seabed_pad=0):
+                        n_range=None, return_numpy=False, seabed_pad=0):
         """(ping, range) 0/1 mask of below-seabed pixels; ``seabed_pad``
-        shifts the mask down (reference data_reader.py:810-851)."""
+        shifts the mask down (reference data_reader.py:810-851).
+        ``return_numpy`` is accepted and unused (the mask is numpy)."""
         ping_sl = slice(idx_ping, None if n_pings is None
                         else idx_ping + n_pings)
         if idx_range is None:
@@ -326,9 +337,12 @@ class DataReaderZarr:
             return pad
         return seabed_slice
 
-    def get_seabed(self, idx_ping, n_pings=1):
+    def get_seabed(self, idx_ping, n_pings=1, idx_range=None, n_range=None,
+                   return_numpy=True):
         """Per-ping first below-seabed row index
         (reference data_reader.py:853-870), cached for the full survey.
+        ``idx_range``, ``n_range`` and ``return_numpy`` are accepted and
+        unused, as in the reference.
 
         The per-ping vector is computed in ping-chunked streaming reads —
         the full bottom mask of a real survey (10^5-10^6 pings x ~4k range

@@ -38,6 +38,8 @@ per level (4 -> 64 -> ... -> 1024 at depth 5, ~31M parameters).
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -367,3 +369,14 @@ def init_train_(model: UNet, generator: torch.Generator) -> UNet:
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
     return model
+
+
+def count_params(params) -> int:
+    """Number of scalars in ``params``: a module's parameters, or every
+    leaf of a (nested) dict of arrays, as the JAX package counts its
+    ``variables["params"]`` tree (a state dict's buffers count too)."""
+    if isinstance(params, nn.Module):
+        return sum(p.numel() for p in params.parameters())
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    return math.prod(params.shape)

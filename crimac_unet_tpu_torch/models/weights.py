@@ -130,6 +130,11 @@ def torch_to_flax_variables(state_dict: dict) -> dict:
     return {"params": torch_to_flax_params(state_dict), "batch_stats": stats}
 
 
+def torch_state_dict_to_flax(sd: dict) -> dict:
+    """The JAX package's name for :func:`torch_to_flax_variables`."""
+    return torch_to_flax_variables(sd)
+
+
 def flax_params_to_torch(params: dict) -> dict:
     """flax ``params`` tree (or a tree of the same shape, such as optax's
     momentum ``trace``) -> reference-named numpy arrays of the weights

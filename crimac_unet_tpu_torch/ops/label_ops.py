@@ -19,6 +19,7 @@ from ..constants import (BACKGROUND, LABEL_BOUNDARY_VAL, LABEL_IGNORE_VAL,
                          LABEL_SEABED_MASK_VAL, LABEL_UNUSED_SPECIES, OTHER,
                          RAW_OTHER, RAW_SANDEEL, SANDEEL)
 from .closing import binary_closing
+from .morphology import DISC_7X7  # noqa: F401 — the JAX module's name
 
 BIG_ROW = 10 ** 8  # "no seabed in this column" sentinel for seabed vectors
 

@@ -32,13 +32,13 @@ def _put(batch: dict, device: torch.device) -> dict:
     return out
 
 
-def device_prefetch(iterator, device, depth: int = 2, mesh=None):
+def device_prefetch(iterator, device=None, depth: int = 2, mesh=None):
     """Yield the host batches (dicts of numpy arrays) of ``iterator`` as
-    dicts of tensors on ``device``, ``depth`` batches ahead (at least
-    one: a depth of 0 would yield nothing); with a ``mesh``, this rank's
-    shard of each batch (``checked_shard``: every leading axis must divide
-    by the mesh size)."""
-    device = torch.device(device)
+    dicts of tensors on ``device`` (cuda when None), ``depth`` batches
+    ahead (at least one: a depth of 0 would yield nothing); with a
+    ``mesh``, this rank's shard of each batch (``checked_shard``: every
+    leading axis must divide by the mesh size)."""
+    device = torch.device("cuda" if device is None else device)
     depth = max(1, int(depth))
     buf = collections.deque()
     it = iter(iterator)

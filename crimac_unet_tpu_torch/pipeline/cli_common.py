@@ -15,6 +15,8 @@ from pathlib import Path
 @dataclass
 class EvalContext:
     config: dict
+    experiment_name: str
+    run_id: str
     runner: object
     data_obj: object
     metrics_dir: str | None
@@ -32,9 +34,10 @@ def checkpoint_run_id(checkpoint_path) -> str:
     return os.path.splitext(parts[-1])[0]
 
 
-def load_eval_context(argv=None, want_plots: bool = False,
+def load_eval_context(mode: str, argv=None, want_plots: bool = False,
                       need_runner=True) -> EvalContext:
-    """Parse the ``eval`` flag set, load the reference ``.pt`` state dict
+    """Parse the ``mode`` flag set (``config.get_argparse_parser``: the
+    CLIs pass ``eval``), load the checkpoint
     into a GriddedRunner on ``config['device']`` (cuda when absent),
     build the data partition and create the per-run metrics (and, with
     ``want_plots``, plot) directories.
@@ -48,7 +51,7 @@ def load_eval_context(argv=None, want_plots: bool = False,
     from ..data.partition import make_partition
     from ..utils.general import fix_seeds
 
-    args = get_argparse_parser("eval").parse_args(argv)
+    args = get_argparse_parser(mode).parse_args(argv)
     config = parse_config_options(load_yaml_config(args.yaml_path), args)
     experiment_name = Path(config["yaml_path"]).stem
 
@@ -85,5 +88,6 @@ def load_eval_context(argv=None, want_plots: bool = False,
         os.makedirs(plot_dir, exist_ok=True)
         print("Plot directory:", plot_dir, "\n")
 
-    return EvalContext(config=config, runner=runner, data_obj=data_obj,
+    return EvalContext(config=config, experiment_name=experiment_name,
+                       run_id=run_id, runner=runner, data_obj=data_obj,
                        metrics_dir=metrics_dir, plot_dir=plot_dir)

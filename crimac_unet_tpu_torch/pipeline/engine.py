@@ -60,7 +60,8 @@ import torch.nn.functional as F
 from ..constants import LABEL_IGNORE_VAL
 from ..data.device_pool import gather_crops, gather_meta_crops
 from ..data.meta_channels import get_in_channels
-from ..models.unet import UNet
+from ..models import weights
+from ..models.unet import UNet, init_train_
 from ..models.weights import (flax_params_to_torch,
                               flax_to_torch_state_dict, to_tensors,
                               torch_to_flax_params, torch_to_flax_variables)
@@ -93,11 +94,21 @@ def make_optimizer(model: UNet, config: dict) -> torch.optim.SGD:
                            dampening=0.0, nesterov=False)
 
 
-def init_train_state(model: UNet, config: dict) -> TrainState:
-    """Fresh TrainState at step 0 from the model's current weights; the
-    momentum buffers start at zero (torch creates them at the first
-    update as the gradient, which is optax's zero trace after one
-    step)."""
+def init_train_state(model: UNet, config: dict, gen=None,
+                     state_dict=None) -> TrainState:
+    """Fresh TrainState at step 0.  ``state_dict`` seeds the weights from
+    imported ones (e.g. a reference ``.pt`` via ``load_checkpoint``);
+    otherwise ``gen`` (a ``torch.Generator``) draws torch's default
+    initialisation (``init_train_``), and with neither the model keeps
+    its current weights.  The momentum buffers start at zero either way
+    (torch creates them at the first update as the gradient, which is
+    optax's zero trace after one step)."""
+    if state_dict is not None:
+        dev = next(model.parameters()).device
+        model.load_state_dict({k: v.to(dev) for k, v in
+                               to_tensors(state_dict).items()})
+    elif gen is not None:
+        init_train_(model, gen)
     return TrainState(model=model, optimizer=make_optimizer(model, config))
 
 
@@ -147,9 +158,10 @@ def focal_loss(logits, labels, class_weights, gamma=2.0, mesh=None):
                           mesh)
 
 
-def dice_loss(logits, labels, eps=1e-6, mesh=None):
+def dice_loss(logits, labels, class_weights=None, eps=1e-6, mesh=None):
     """Soft multiclass Dice over non-ignored pixels (the JAX package's
-    extension of the reference's documented 'Dice' option).  Under a mesh
+    extension of the reference's documented 'Dice' option; it takes
+    ``class_weights`` and does not use them, as there).  Under a mesh
     the per-class sums are all-reduced (differentiably) and each rank
     returns 1/N of the global loss, so the ranks' shares sum to it."""
     valid = labels != LABEL_IGNORE_VAL
@@ -374,10 +386,12 @@ def checkpoint_payload(state: TrainState) -> dict:
             "step": step}
 
 
-def save_checkpoint(path, state: TrainState, extras=None) -> None:
-    """Write ``state`` as a flax msgpack checkpoint, atomically (temp file
-    + os.replace: a crash mid-write never destroys the previous good
-    checkpoint).  ``extras`` (e.g. the best validation F1) goes to the
+def save_checkpoint(path, state_or_vars, extras=None) -> None:
+    """Write a TrainState, or plain weights (flax ``{"params",
+    "batch_stats"}`` variables or a reference state dict), as a flax
+    msgpack checkpoint, atomically (temp file + os.replace: a crash
+    mid-write never destroys the previous good checkpoint).  ``extras``
+    (e.g. the best validation F1) goes to the
     ``<path>.json`` sidecar FIRST, so a crash between the two replaces
     pairs the old checkpoint with the new (>= actual) best-F1 high-water
     mark, never a new checkpoint with a stale low one."""
@@ -389,10 +403,36 @@ def save_checkpoint(path, state: TrainState, extras=None) -> None:
         with open(path + ".json.tmp", "w") as f:
             json.dump(extras, f)
         os.replace(path + ".json.tmp", path + ".json")
-    data = flax_msgpack.packb(checkpoint_payload(state))
+    if isinstance(state_or_vars, TrainState):
+        payload = checkpoint_payload(state_or_vars)
+    elif "params" in state_or_vars:
+        payload = {k: _numpy_tree(v) for k, v in state_or_vars.items()}
+    else:
+        payload = torch_to_flax_variables(state_or_vars)
+    data = flax_msgpack.packb(payload)
     with open(path + ".tmp", "wb") as f:
         f.write(data)
     os.replace(path + ".tmp", path)
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def load_checkpoint(path, template=None):
+    """A checkpoint's weights as a reference state dict of CPU tensors (a
+    reference ``.pt`` or either package's msgpack,
+    ``models.weights.load_checkpoint``); with a TrainState ``template``
+    the whole msgpack TrainState (weights, momentum, step) restored into
+    it, as the JAX package restores into its template."""
+    if template is None:
+        return weights.load_checkpoint(path)
+    return restore_train_state(template,
+                               weights.read_msgpack_checkpoint(path))
 
 
 def load_checkpoint_extras(path) -> dict:

@@ -59,7 +59,7 @@ def evaluate_survey(runner, readers, eval_mode, save_path_metrics=None,
 def main(argv=None):
     from .cli_common import load_eval_context
 
-    ctx = load_eval_context(argv, want_plots=True)
+    ctx = load_eval_context("eval", argv, want_plots=True)
     for survey in ctx.data_obj.get_evaluation_surveys():
         readers = ctx.data_obj.get_survey_readers(survey)
         print("Running evaluation for", survey)

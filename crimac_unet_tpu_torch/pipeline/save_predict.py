@@ -26,18 +26,15 @@ from .predict import (save_reader_predictions_memm,
 from .runner import GriddedRunner, resolve_device
 
 
-def run_save_predictions(config, runner, predictions_dir, progress=False,
-                         **paths):
+def run_save_predictions(config, runner, data_obj, predictions_dir,
+                         progress=False):
     """Predict every reader of each ``save_prediction_surveys`` year into
-    ``predictions_dir``.  Readers come from the data partition of
-    ``config['data_mode']``; ``paths`` (``path_to_echograms`` or
-    ``path_to_zarr_files``) override the config's and ``setpyenv.json``'s
-    survey root."""
+    ``predictions_dir``.  Readers come from ``data_obj``, the data
+    partition of ``config['data_mode']`` (``make_partition``)."""
     if not config.get("save_prediction_surveys"):
         print("WARNING: save_prediction_surveys is empty — nothing to "
               "predict; set it in the YAML (year numbers, e.g. [2017])")
         return
-    data_obj = make_partition(dict(config, **paths))
     for survey in config["save_prediction_surveys"]:
         readers = data_obj.get_survey_readers(survey)
         print(f"Saving predictions for survey {survey}, "
@@ -100,10 +97,12 @@ def main(argv=None):
     state_dict = load_checkpoint(config["checkpoint_path"])
     runner = GriddedRunner(build_unet(config), state_dict, config,
                            device=config.get("device"))
+    data_obj = make_partition(config)
     # a torch.profiler trace of the run when CRIMAC_PROFILE_DIR is set
     from ..utils.profiling import device_trace
     with device_trace() as trace_dir:
-        run_save_predictions(config, runner, predictions_dir, progress=True)
+        run_save_predictions(config, runner, data_obj, predictions_dir,
+                             progress=True)
     if trace_dir:
         print(f"profiler trace written to {trace_dir}")
     print(runner.timer.report())

@@ -848,7 +848,8 @@ def main(argv=None):
     # model build, no device (the CLI still requires --checkpoint_path
     # to exist — the reference eval flag set — but never opens it)
     ctx = load_eval_context(
-        argv, need_runner=lambda cfg: not cfg.get("school_from_predictions"))
+        "eval", argv,
+        need_runner=lambda cfg: not cfg.get("school_from_predictions"))
     config, runner, data_obj = ctx.config, ctx.runner, ctx.data_obj
 
     # knobs are YAML keys (school_prob_threshold / school_min_area /

@@ -26,9 +26,8 @@ import numpy as np
 import torch
 
 from ..data.device_pool import META_ORDER
-from ..models.unet import build_unet, init_train_
-from ..models.weights import (load_checkpoint, read_msgpack_checkpoint,
-                              to_tensors)
+from ..models.unet import build_unet
+from ..models.weights import load_checkpoint
 from ..ops import metrics as M
 from ..parallel.mesh import (all_reduce_, barrier, broadcast_object,
                              get_mesh, is_writer, mesh_size, replicate_)
@@ -40,8 +39,10 @@ from .runner import resolve_device
 class SegPipeUNet:
     """Train/validate the flagship U-Net (reference pipeline.py:379-410)."""
 
-    def __init__(self, config: dict, checkpoint_dir=None):
+    def __init__(self, config: dict, checkpoint_dir=None,
+                 experiment_name="model"):
         self.config = dict(config)
+        self.model_name = experiment_name
         self.device = resolve_device(config.get("device"))
         # the data mesh (None: this process trains alone); a batch the
         # mesh does not divide trains single-device on every rank, as
@@ -116,17 +117,15 @@ class SegPipeUNet:
         """Fresh TrainState at step 0: torch's default initialisation
         from a generator seeded with ``seed`` (``random_seed`` when
         None), or the weights of ``state_dict``; zero momentum."""
-        if state_dict is not None:
-            self.model.load_state_dict(
-                {k: v.to(self.device) for k, v in
-                 to_tensors(state_dict).items()})
-        else:
+        gen = None
+        if state_dict is None:
             seed = int(self.config.get("random_seed", 10)) if seed is None \
                 else int(seed)
             # drawn on the CPU, so the weights do not depend on the device
-            init_train_(self.model, torch.Generator().manual_seed(seed))
+            gen = torch.Generator().manual_seed(seed)
+        self.state = engine.init_train_state(self.model, self.config, gen,
+                                             state_dict)
         replicate_(self.mesh, self.model)
-        self.state = engine.init_train_state(self.model, self.config)
         return self.state
 
     def load_model_params(self, checkpoint_path=None):
@@ -150,8 +149,7 @@ class SegPipeUNet:
                 "the weights with load_model_params/--checkpoint_path "
                 "instead (training then starts from step 0)")
         self.init_model()
-        engine.restore_train_state(self.state,
-                                   read_msgpack_checkpoint(checkpoint_path))
+        engine.load_checkpoint(checkpoint_path, template=self.state)
         replicate_(self.mesh, self.model, self.state.optimizer)
         extras = engine.load_checkpoint_extras(checkpoint_path)
         if "best_f1" in extras and np.isfinite(extras["best_f1"]):

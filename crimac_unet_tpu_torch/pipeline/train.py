@@ -72,7 +72,8 @@ def make_datasets(config, data_obj):
     return train_factory, test_factory, readers_train, readers_test
 
 
-def maybe_build_pool(config, readers, device, budget_mb=None, role="train"):
+def maybe_build_pool(config, readers_train, budget_mb=None, role="train",
+                     device=None):
     """Device sample pool when enabled and within the budget:
     ``DeviceSamplePool`` for memmap readers (with the metadata vectors
     when ``meta_channels`` are on), ``ZarrSamplePool`` for zarr readers.
@@ -83,7 +84,10 @@ def maybe_build_pool(config, readers, device, budget_mb=None, role="train"):
     ``role``: 'train' (forced mode raises) or 'validation' (always falls
     back to host crops).  Metadata channels on zarr surveys cannot pool
     (metadata is memmap-only): they fall back to host crops, where
-    ``crop_meta`` raises the memmap-only ``ValueError``."""
+    ``crop_meta`` raises the memmap-only ``ValueError``.  ``device``
+    (default: the config's, as ``resolve_device`` reads it) holds the
+    pool."""
+    readers = readers_train
     mode = config.get("use_device_pool", "auto")
     if not mode or not readers:
         return None
@@ -115,11 +119,14 @@ def maybe_build_pool(config, readers, device, budget_mb=None, role="train"):
             f"use_device_pool: true but the pool needs {mb:.0f} MB "
             f"> device_pool_budget_mb={budget_mb}; raise the budget, "
             "reduce the survey set, or set use_device_pool: auto/false")
+    if device is None:
+        device = resolve_device(config.get("device"))
     cls = dp.ZarrSamplePool if zarr else dp.DeviceSamplePool
-    return cls(readers, freqs, window, device, meta_channels=meta)
+    return cls(readers, freqs, window, meta_channels=meta, device=device)
 
 
-def run_training(config, checkpoint_dir, logger=None, progress=True):
+def run_training(config, checkpoint_dir, experiment_name=None,
+                 logger=None, progress=True):
     device = resolve_device(config.get("device"))
     # a mesh larger than the process group raises before any survey is
     # read (SegPipeUNet takes the same mesh)
@@ -129,7 +136,7 @@ def run_training(config, checkpoint_dir, logger=None, progress=True):
     train_factory, test_factory, readers_train, readers_test = \
         make_datasets(config, data_obj)
 
-    pool = maybe_build_pool(config, readers_train, device)
+    pool = maybe_build_pool(config, readers_train, device=device)
     if pool is not None:
         base_factory = train_factory
 
@@ -143,8 +150,9 @@ def run_training(config, checkpoint_dir, logger=None, progress=True):
         budget -= int(dp.pool_bytes(readers_train,
                                     sorted(config["frequencies"]),
                                     tuple(config["patch_size"])) / 2 ** 20)
-    pool_val = maybe_build_pool(config, readers_test, device,
-                                budget_mb=max(budget, 0), role="validation")
+    pool_val = maybe_build_pool(config, readers_test,
+                                budget_mb=max(budget, 0), role="validation",
+                                device=device)
     if pool_val is not None:
         base_test_factory = test_factory
 
@@ -153,7 +161,8 @@ def run_training(config, checkpoint_dir, logger=None, progress=True):
                 pool_val, with_seabed=True)
 
     segpipe = SegPipeUNet(dict(config, device=str(device)),
-                          checkpoint_dir=checkpoint_dir)
+                          checkpoint_dir=checkpoint_dir,
+                          experiment_name=experiment_name or "model")
     if pool is not None:
         segpipe.attach_pool(pool)
     if pool_val is not None:
@@ -223,7 +232,7 @@ def main(argv=None):
     print("Data mode:", config["data_mode"])
     start = time.time()
     try:
-        run_training(config, checkpoint_dir, logger)
+        run_training(config, checkpoint_dir, experiment_name, logger)
     finally:
         shutdown_distributed()
     print(f"Executed time for training (h): "

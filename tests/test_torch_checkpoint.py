@@ -32,6 +32,7 @@ from crimac_unet_tpu.pipeline import engine as jax_engine
 from crimac_unet_tpu.pipeline.segpipe import SegPipeUNet as JaxSegPipe
 from crimac_unet_tpu_torch.config import parse_config_options
 from crimac_unet_tpu_torch.data.fixtures import make_survey_dir
+from crimac_unet_tpu_torch.data.partition import make_partition
 from crimac_unet_tpu_torch.models.unet import build_unet, init_train_
 from crimac_unet_tpu_torch.models.weights import (flax_params_to_torch,
                                                   load_checkpoint,
@@ -134,8 +135,9 @@ def test_jax_msgpack_served_by_port_equals_pt_route(tmp_path):
         runner = GriddedRunner(build_unet(cfg),
                                load_checkpoint(tmp_path / name), cfg,
                                device="cpu")
-        run_save_predictions(cfg, runner, str(out),
-                             path_to_echograms=str(tmp_path / "memm"))
+        data_obj = make_partition(
+            dict(cfg, path_to_echograms=str(tmp_path / "memm")))
+        run_save_predictions(cfg, runner, data_obj, str(out))
         (pred,) = out.glob("*_pred.npy")
         outs.append(np.load(pred))
     assert (outs[0] != 0).any()

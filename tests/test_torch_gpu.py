@@ -374,8 +374,8 @@ def test_zarr_pool_on_card_equals_cpu(cuda, tmp_path):
     reader = DataReaderZarr(make_zarr_survey(
         tmp_path, year=2017, n_echograms=2, H=100, W=200, seed=7))
     freqs = [18, 38, 120, 200]
-    cpu = ZarrSamplePool([reader], freqs, WIN, "cpu", chunk_pings=96)
-    card = ZarrSamplePool([reader], freqs, WIN, cuda, chunk_pings=96)
+    cpu = ZarrSamplePool([reader], freqs, WIN, device="cpu", chunk_pings=96)
+    card = ZarrSamplePool([reader], freqs, WIN, device=cuda, chunk_pings=96)
     assert torch.equal(card.data.cpu(), cpu.data)
     assert torch.equal(card.labels.cpu(), cpu.labels)
     centers = [(0, 0), (-10, 5), (99, 399), (120, 410), (50, 200),

@@ -93,7 +93,7 @@ def _assert_meta_close(got, want):
 
 def test_gather_meta_crops_match_jax_and_host(surveys):
     port, jax_r = surveys
-    pool = device_pool.DeviceSamplePool(port, FREQS, WIN, "cpu",
+    pool = device_pool.DeviceSamplePool(port, FREQS, WIN, device="cpu",
                                         meta_channels=META_CHANNELS_ALL)
     jpool = jax_pool.DeviceSamplePool(jax_r, FREQS, WIN,
                                       meta_channels=META_CHANNELS_ALL)
@@ -266,7 +266,7 @@ def test_pooled_meta_steps_equal_host_crop_steps(surveys,
     given the same crops the host-crop steps give the same result."""
     cfg = _cfg(late)
     port, _ = surveys
-    pool = device_pool.DeviceSamplePool(port, FREQS, WIN, "cpu",
+    pool = device_pool.DeviceSamplePool(port, FREQS, WIN, device="cpu",
                                         meta_channels=META_CHANNELS_ALL)
     samples = _centers(port, np.random.RandomState(2), n=1)[:B]
     idx, starts = (torch.from_numpy(a) for a in pool.prepare_batch(
@@ -297,11 +297,11 @@ def test_pooled_meta_steps_equal_host_crop_steps(surveys,
 
 def test_segpipe_checks_pool_meta(surveys):
     port, _ = surveys
-    plain = device_pool.DeviceSamplePool(port[:1], FREQS, WIN, "cpu")
-    meta = device_pool.DeviceSamplePool(port[:1], FREQS, WIN, "cpu",
+    plain = device_pool.DeviceSamplePool(port[:1], FREQS, WIN, device="cpu")
+    meta = device_pool.DeviceSamplePool(port[:1], FREQS, WIN, device="cpu",
                                         meta_channels=META_CHANNELS_ALL)
     fewer = device_pool.DeviceSamplePool(
-        port[:1], FREQS, WIN, "cpu",
+        port[:1], FREQS, WIN, device="cpu",
         meta_channels=dict(META_CHANNELS_ALL, time_diff=False))
     sp = SegPipeUNet(dict(_cfg(False), device="cpu"))
     with pytest.raises(ValueError, match="built without them"):

@@ -45,6 +45,7 @@ from crimac_unet_tpu.pipeline.save_predict import \
     run_save_predictions as jax_run_save_predictions
 from crimac_unet_tpu_torch.config import SERVING_PRESET, parse_config_options
 from crimac_unet_tpu_torch.data.memmap_reader import Echogram
+from crimac_unet_tpu_torch.data.partition import make_partition
 from crimac_unet_tpu_torch.data.zarr_reader import DataReaderZarr
 from crimac_unet_tpu_torch.data.zarrlite import ZGroup
 from crimac_unet_tpu_torch.models.unet import build_unet
@@ -321,10 +322,10 @@ def test_static_grid_survey_predict_matches_jax(tmp_path, sg_variables,
                                      if mode == "patch" else "_predict_slab")
         out = tmp_path / f"port_{static}"
         out.mkdir()
-        run_save_predictions(parse_config_options(dict(cfg,
-                                                       static_grid=static)),
-                             runner,
-                             str(out), path_to_echograms=str(tmp_path / "port"))
+        pcfg = parse_config_options(dict(cfg, static_grid=static))
+        data_obj = make_partition(
+            dict(pcfg, path_to_echograms=str(tmp_path / "port")))
+        run_save_predictions(pcfg, runner, data_obj, str(out))
     assert len(set(shapes[False])) > 1 and len(set(shapes[True])) == 1
     names = sorted(os.listdir(tmp_path / "jax_out"))
     assert names == sorted(os.listdir(tmp_path / "port_True")) and \

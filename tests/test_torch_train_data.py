@@ -120,7 +120,8 @@ def test_sampler_draws_equal(surveys, kind):
 
 def _datasets(surveys, seed):
     port, jax_r, proot, jroot = surveys
-    part = make_partition(dict(CFG, path_to_echograms=str(proot)))
+    part = make_partition(dict(CFG, path_to_echograms=str(proot),
+                               save_prediction_surveys=[]))
     jpart = jax_partition(dict(CFG, path_to_echograms=str(jroot),
                                save_prediction_surveys=[]))
     (tr, te), (jtr, jte) = part.partition_data_train(), \
@@ -149,7 +150,7 @@ def test_dataset_batches_equal_host_and_pooled(surveys):
         for k in b:
             np.testing.assert_array_equal(b[k], jb[k])
     ds, jds, tr, jtr = _datasets(surveys, 12)
-    pool = device_pool.DeviceSamplePool(tr, FREQS, WIN, "cpu")
+    pool = device_pool.DeviceSamplePool(tr, FREQS, WIN, device="cpu")
     jpool = jax_pool.DeviceSamplePool(jtr, FREQS, WIN)
     ds.use_pool(pool, with_seabed=True)
     jds.use_pool(jpool, with_seabed=True)
@@ -182,7 +183,7 @@ def test_pool_canvases_and_bytes_equal(surveys):
     for budget in (0.1, 2048):
         assert device_pool.fits_budget(port, FREQS, WIN, budget) == \
             jax_pool.fits_budget(jax_r, FREQS, WIN, budget)
-    pool = device_pool.DeviceSamplePool(port, FREQS, WIN, "cpu")
+    pool = device_pool.DeviceSamplePool(port, FREQS, WIN, device="cpu")
     jpool = jax_pool.DeviceSamplePool(jax_r, FREQS, WIN)
     np.testing.assert_array_equal(pool.data.numpy(), np.asarray(jpool.data))
     np.testing.assert_array_equal(pool.labels.numpy(),

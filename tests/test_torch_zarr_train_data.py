@@ -243,7 +243,8 @@ def test_zarr_sampler_give_ups_equal(surveys, kind, what, caplog):
 
 def _datasets(surveys, seed, meta=None):
     proot, jroot = surveys["port"][0], surveys["jax"][0]
-    part = make_partition(dict(CFG, path_to_zarr_files=str(proot)))
+    part = make_partition(dict(CFG, path_to_zarr_files=str(proot),
+                               save_prediction_surveys=[]))
     jpart = jax_partition(dict(CFG, path_to_zarr_files=str(jroot),
                                save_prediction_surveys=[]))
     (tr, te), (jtr, jte) = part.partition_data_train(), \
@@ -269,7 +270,7 @@ def test_zarr_partition_and_batches_equal_host_and_pooled(surveys):
         for k in b:
             np.testing.assert_array_equal(b[k], jb[k])
     ds, jds, tr, jtr = _datasets(surveys, 12)
-    pool = device_pool.ZarrSamplePool(tr, FREQS, WIN, "cpu")
+    pool = device_pool.ZarrSamplePool(tr, FREQS, WIN, device="cpu")
     jpool = jax_pool.ZarrSamplePool(jtr, FREQS, WIN)
     ds.use_pool(pool, with_seabed=True)
     jds.use_pool(jpool, with_seabed=True)
@@ -300,7 +301,7 @@ def test_zarr_pool_equals_jax_pool_and_host_crops(surveys, monkeypatch,
         jax_pool.canvas_dims(jax_r, WIN)
     assert device_pool.pool_bytes(port, FREQS, WIN) == \
         jax_pool.pool_bytes(jax_r, FREQS, WIN)
-    pool = device_pool.ZarrSamplePool(port, FREQS, WIN, "cpu",
+    pool = device_pool.ZarrSamplePool(port, FREQS, WIN, device="cpu",
                                       chunk_pings=chunk_pings)
     jpool = jax_pool.ZarrSamplePool(jax_r, FREQS, WIN,
                                     chunk_pings=chunk_pings)
@@ -330,13 +331,14 @@ def test_zarr_pool_equals_jax_pool_and_host_crops(surveys, monkeypatch,
 def test_meta_on_zarr_raises(surveys):
     port, _ = _readers(surveys)
     with pytest.raises(ValueError, match="memmap-only"):
-        device_pool.ZarrSamplePool(port, FREQS, WIN, "cpu",
+        device_pool.ZarrSamplePool(port, FREQS, WIN, device="cpu",
                                    meta_channels=META_CHANNELS_ALL)
     with pytest.raises(ValueError, match="ZarrSamplePool"):
-        device_pool.DeviceSamplePool(port, FREQS, WIN, "cpu")
+        device_pool.DeviceSamplePool(port, FREQS, WIN, device="cpu")
     with pytest.raises(ValueError, match="DeviceSamplePool"):
         device_pool.ZarrSamplePool(
-            [type("M", (), {"data_format": "memmap"})()], FREQS, WIN, "cpu")
+            [type("M", (), {"data_format": "memmap"})()], FREQS, WIN,
+            device="cpu")
     with pytest.raises(ValueError, match="memmap-only"):
         crop_meta(port[0], (40, 60), WIN, META_CHANNELS_ALL)
     ds, jds, _, _ = _datasets(surveys, 3, meta=META_CHANNELS_ALL)
