@@ -7,6 +7,8 @@
     python3 chip_smoke.py --phases 1 --recipe meta-early
     python3 chip_smoke.py --phases 1,15    # the export from random weights
     python3 chip_smoke.py --phases 1,4,6,18   # the matrix and JAX calls
+    python3 chip_smoke.py --phases 1,6,12,19  # trained weights, soak
+    python3 chip_smoke.py --phases 1,6,19 --trained-ckpt best.msgpack
 
 Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit; imports
 nothing of JAX or of the JAX package.  Phases, in order; any failure
@@ -183,6 +185,24 @@ raises and the script exits nonzero without its result line:
     "phase18", None)`` for 20 full-width steps (``x_train``: K4 and K2),
     and ``get_gridded_survey_sampler`` with ``eval_mode: fish`` giving
     the trace sampler;
+19. the JAX package's trained-weight and survey-scale checks (needs 6
+    and 12, or ``--trained-ckpt``), through ``scripts/torch_*.py`` at
+    full width with phase 12's trained best.msgpack: ``torch_u8_bound``
+    (exact float32, patch uint8, slab uint8 and slab uint8 with uint8
+    outputs over phase 6's survey), ``torch_eval_u8_bound`` (evaluation
+    at float32, bfloat16 and uint8 transfer), ``torch_serving_geometry_ab``
+    (the serving preset at overlap 20 and 16, each against its own
+    float32 oracle), ``torch_school_ap_trained`` (school AP on the big
+    held-out fixture: 14 echograms of 700 x 400), ``torch_soak50k``
+    (patch, slab and uint8 evaluation streamed over a ``--soak-pings``
+    survey, default 20 000, built by a child process while the other
+    checks run, and over phase 6's 4000-ping survey as the reference of
+    its host RSS delta and peak device memory) and
+    ``torch_school_eval_soak`` (the streaming detector over
+    ``--soak-pings``); every reading printed beside its bound
+    (``U8_DF1`` ... ``SOAK_DEVICE_RATIO``); the first K1 and K3 call of
+    each path held bit for bit to its plain version (the new overlap-16,
+    700-range and soak geometries); launches ``p19_<path>``;
 
 and then one JSON line naming every kernel with its phase-2 numbers
 (slab geometry included), its launches on the main path that runs it
@@ -191,7 +211,7 @@ and then one JSON line naming every kernel with its phase-2 numbers
 training runs of phases 12-14, ``ex``, ``exu``, ``es`` and ``em`` the
 patch, unfolded, slab and metadata artifacts of phase 15, ``ob``, ``oe``,
 ``oz``, ``oz512``, ``oxp`` and ``oxs`` the onboarded paths of phase 17,
-``x_*`` the paths of phase 18),
+``x_*`` the paths of phase 18, ``p19_*`` those of phase 19),
 then the last
 line ``{"ok": true,
 "device": {...}}``.  ``--recipe baseline|fast|meta-early|meta-late|zarr``
@@ -3808,6 +3828,258 @@ def phase_surface(torch, cuda_lib, tmp, card, ech_dir, reader, cfg, sv,
     return paths, rates
 
 
+# -------------------------------------------------------------- phase 19
+# The JAX package's trained-weight and survey-scale checks (the six
+# scripts behind config_serving.yaml's defaults), run through the port's
+# scripts/torch_*.py with phase 12's trained best.msgpack.  Each bound was
+# written before the first card run of phase 19 (PERF.md §6, PR 12),
+# from the issue's starting table; the JAX package's records on the same
+# fixtures are in brackets (docs/SESSIONS.md).
+SOAK_PINGS = 20_000           # 5x the longest echogram run before phase 19
+U8_DF1 = {"patch_u8": 2e-4, "serving_u8": 5e-3}   # [1e-5, 1.1e-3]
+U8_OUT_MAX = 1 / 510 + 2 ** -12     # output-u8 alone, max |d| [0.0022]
+U8_OUT_DF1 = 1e-4             # output-u8 alone, |dF1| [0.0]
+EVAL_DF1 = 1e-4               # bfloat16 and uint8 against float32 [6.3e-6]
+GEOM_DF1 = 2e-3               # each serving arm against its oracle [1e-5,
+                              # 2e-5]
+SOAK_RSS_CAP = 256 * 2 ** 20  # streaming RSS delta, absolute
+SOAK_RSS_RATIO, SOAK_RSS_SLACK = 1.5, 32 * 2 ** 20   # ... against 4000 pings
+SOAK_DEVICE_RATIO = 1.1       # peak device memory against 4000 pings
+PREDICT_PATHS = ("u8_", "geom_", "school_ap", "soak_patch", "soak_slab")
+
+
+def _first_call_probe(torch, card):
+    """A ``Paths`` probe: within one path, the first K1 (``gather_db``, as
+    the runner calls it) and the first K3 (``relu_pool_skip``, as the
+    U-Net calls it) are held bit for bit to their plain versions on the
+    same inputs, right after the call (plain versions launch no kernel)."""
+    import contextlib
+    from crimac_unet_tpu_torch.models import unet
+    from crimac_unet_tpu_torch.ops.gather_db import gather_db_reference
+    from crimac_unet_tpu_torch.ops.pool import relu_pool_skip_reference
+    from crimac_unet_tpu_torch.pipeline import runner
+
+    @contextlib.contextmanager
+    def probe(name):
+        seen = {}
+
+        def k1(*args, **kw):
+            out = real_k1(*args, **kw)
+            if "gather_db" not in seen:
+                want = gather_db_reference(*args, **kw)
+                check(out.is_cuda and equal_nan(torch, out, want),
+                      f"{name}: gather_db != plain at {tuple(out.shape)} "
+                      f"from slab {tuple(args[0].shape)} {args[0].dtype}")
+                seen["gather_db"] = tuple(out.shape)
+            return out
+
+        def k3(x):
+            out = real_k3(x)
+            if "relu_pool_skip" not in seen:
+                for got, want in zip(out, relu_pool_skip_reference(x)):
+                    check(got.is_cuda and equal_nan(torch, got, want),
+                          f"{name}: relu_pool_skip != plain at "
+                          f"{tuple(x.shape)}")
+                seen["relu_pool_skip"] = tuple(x.shape)
+            return out
+        real_k1, real_k3 = runner.gather_db, unet.relu_pool_skip
+        runner.gather_db, unet.relu_pool_skip = k1, k3
+        try:
+            yield
+        finally:
+            runner.gather_db, unet.relu_pool_skip = real_k1, real_k3
+        predicts = name.startswith(PREDICT_PATHS)
+        check("relu_pool_skip" in seen
+              and ("gather_db" in seen) == predicts,
+              f"{name}: first calls held {seen}")
+        print(f"{name}: first call bit-equal to plain: "
+              + ", ".join(f"{k} {v}" for k, v in seen.items()) + f" [{card}]")
+    return probe
+
+
+def _check_path_launches(paths):
+    """K1 = K3 = forwards on every prediction path, K4 = K3 = sub-batches
+    on every evaluation path, K2 never (``fold_bn: true``)."""
+    for name, c in paths.items():
+        k = ("gather_db" if name.startswith(PREDICT_PATHS)
+             else "binary_closing")
+        off = {"gather_db", "binary_closing"} - {k}
+        check(c["forwards"] > 0 and c[k] == c["relu_pool_skip"]
+              == c["forwards"] and c["maxpool2x2"] == 0
+              and all(c[o] == 0 for o in off),
+              f"{name}: launches {c}")
+
+
+def _bound(label, value, ok, bound):
+    check(ok, f"{label}: {value} outside its bound {bound}")
+    print(f"  {label}: {value} (bound {bound})")
+
+
+def phase_trained(torch, tmp, card, sv, ckpt, soak_pings):
+    """The trained-weight and survey-scale checks at full width (phase
+    19): scripts/torch_u8_bound.py, torch_eval_u8_bound.py and
+    torch_serving_geometry_ab.py on phase 6's survey, torch_school_ap_
+    trained.py on the big held-out fixture, torch_soak50k.py (patch, slab,
+    eval uint8) at ``soak_pings`` and at phase 6's 4000 pings, and
+    torch_school_eval_soak.py at ``soak_pings``, each reading printed
+    beside its bound."""
+    sys.path.insert(0, str(ROOT))
+    from scripts import torch_soak50k
+    work = tmp / "p19"
+    # the soak survey is written by a child while the other checks run
+    child = torch_soak50k.start_fixture(work, soak_pings)
+    try:
+        return _trained_checks(torch, card, work, sv, ckpt, soak_pings,
+                               child)
+    finally:         # a failed check must not leave the writer running
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+def _trained_checks(torch, card, work, sv, ckpt, soak_pings, child):
+    import numpy as np
+    from scripts import (torch_check_common as common, torch_eval_u8_bound,
+                         torch_school_ap_trained, torch_school_eval_soak,
+                         torch_serving_geometry_ab, torch_soak50k,
+                         torch_u8_bound)
+    t_phase = time.perf_counter()
+    paths = common.Paths(_first_call_probe(torch, card))
+    sd = common.state_dict(ckpt)
+    print("phase 19: weights " + (str(ckpt) if isinstance(ckpt, (str, Path))
+                                  else type(ckpt).__name__))
+    mb = 2 ** -20
+
+    u8 = torch_u8_bound.run(sd, sv, "cuda", paths=paths)
+    print(f"u8 bound: exact_f32 F1 {u8['f1_exact_f32']:.6f}, walls (s) "
+          f"{u8['walls_s']} [{card}]")
+    for m in ("patch_u8", "serving_u8"):
+        r = u8[m]
+        print(f"u8 {m}: F1 {r['f1']:.6f}, |dprob| mean "
+              f"{r['mean_abs_dprob']:.3e} p99 {r['p99_abs_dprob']:.3e} max "
+              f"{r['max_abs_dprob']:.3e}")
+        _bound(f"u8 {m} write mask equal to exact_f32's", r["masks_equal"],
+               r["masks_equal"], True)
+        _bound(f"u8 {m} |dF1|", r["abs_dF1"], r["abs_dF1"] <= U8_DF1[m],
+               U8_DF1[m])
+    r = u8["serving_out_u8"]
+    print(f"u8 serving_out_u8: F1 {r['f1']:.6f}, |dF1| {r['abs_dF1']:.3e}, "
+          f"|dprob| mean {r['mean_abs_dprob']:.3e} max "
+          f"{r['max_abs_dprob']:.3e}")
+    iso = u8["output_u8_isolated"]
+    p_cut = float(np.float16(1 / 510))
+    _bound("output-u8 alone, max |d|", iso["max_abs_dprob"],
+           iso["max_abs_dprob"] <= U8_OUT_MAX, U8_OUT_MAX)
+    _bound(f"output-u8 alone, largest p at the {iso['n_extra_zero']} "
+           f"extra zeros", iso["max_p_at_extra_zero"],
+           iso["max_p_at_extra_zero"] <= p_cut, f"<= f16(1/510) = {p_cut}")
+    _bound("output-u8 alone, |dF1| vs serving_u8",
+           iso["abs_dF1_vs_serving_u8"],
+           iso["abs_dF1_vs_serving_u8"] <= U8_OUT_DF1, U8_OUT_DF1)
+
+    ev = torch_eval_u8_bound.run(sd, sv, "cuda", paths=paths)
+    for td in torch_eval_u8_bound.TRANSFERS:
+        print(f"eval {td}: max F1 {ev[td]['max_f1']:.6f}, scored "
+              f"{ev[td]['n_scored']}, positive {ev[td]['n_pos']} [{card}]")
+    counts = {td: (ev[td]["n_scored"], ev[td]["n_pos"])
+              for td in torch_eval_u8_bound.TRANSFERS}
+    for td in ("bfloat16", "uint8"):
+        d = abs(ev[td]["dF1_vs_float32"])
+        _bound(f"eval {td} scored / positive counts", counts[td],
+               counts[td] == counts["float32"], counts["float32"])
+        _bound(f"eval {td} |dF1| vs float32", d, d <= EVAL_DF1, EVAL_DF1)
+
+    ge = torch_serving_geometry_ab.run(sd, sv, "cuda", passes=2,
+                                       paths=paths)
+    for tag in ("ov20", "ov16"):
+        r = ge[tag]
+        print(f"geometry {tag} (stride {r['stride']}, aligned "
+              f"{r['aligned']}): F1 oracle {r['f1_oracle']:.6f} serving "
+              f"{r['f1_serving']:.6f}; slab vs patch-u8: "
+              f"{r['slab_vs_patch_u8']}; {r['pings_per_sec']:.1f} pings/s "
+              f"[{card}]")
+        _bound(f"geometry {tag} |dF1| vs its oracle", r["abs_dF1"],
+               r["abs_dF1"] <= GEOM_DF1, GEOM_DF1)
+        _bound(f"geometry {tag} warned", r["warned"],
+               r["warned"] == (tag == "ov20"), tag == "ov20")
+
+    val = torch_school_ap_trained.ensure_big_val_fixture(work)
+    ap = torch_school_ap_trained.run(sd, val, "cuda", paths=paths)
+    for name, cm in ap["categories"].items():
+        print(f"school AP {name}: AP@.25/.5/.75 {cm['ap']}, recall "
+              f"{cm['recall']}, {cm['n_detections']} det / {cm['n_gt']} gt")
+        want = torch_school_ap_trained.BIG_VAL_GT[name]
+        _bound(f"school AP {name} ground truth", cm["n_gt"],
+               cm["n_gt"] == want, want)
+    _bound(f"school AP mAP over {ap['n_echograms']} echograms "
+           f"({ap['eval_s']:.2f} s)", ap["mean_ap"],
+           0 < ap["mean_ap"] <= 1, "(0, 1]")
+
+    rates = {"trained geometry ov20 serving": ge["ov20"]["pings_per_sec"],
+             "trained geometry ov16 serving": ge["ov16"]["pings_per_sec"]}
+    t = time.perf_counter()
+    big = torch_soak50k.ensure_fixture(work, soak_pings, child=child)
+    print(f"soak survey waited for {time.perf_counter() - t:.1f} s")
+    for mode in ("patch", "slab", "eval"):
+        soak = {}
+        for label, survey in (("ref", sv), ("soak", big)):
+            soak[label] = r = torch_soak50k.run(
+                mode, sd, survey, "cuda", out=work / f"pred_{mode}_{label}"
+                                              ".zarr", paths=paths)
+            n = r["n_pings"]
+            key = f"soak_{mode}" + ("_uint8" if mode == "eval" else "")
+            paths.counts[f"{key}_{n}"] = paths.counts.pop(key)
+            print(f"soak {mode} {n} pings: {r['wall_s']:.3f} s = "
+                  f"{r['pings_per_sec']:.1f} pings/s, RSS delta "
+                  f"{r['rss_delta_bytes'] * mb:.1f} MiB (before "
+                  f"{r['rss_before_bytes'] * mb:.1f} MiB), peak device "
+                  f"{r['peak_device_bytes'] * mb:.1f} MiB, codec "
+                  f"{r['codec_backend']}, survey compressor "
+                  f"{r['survey_compressor']}; timers {r['timers']} [{card}]")
+            if mode == "eval":
+                _bound(f"soak eval {n} pings scored px", r["n_scored"],
+                       r["n_scored"] > 0, "> 0")
+            else:
+                print(f"  store {r['store_shape']}, compressor "
+                      f"{r['store_compressor']}, {r['written_px']} px "
+                      f"written, {r['pings_with_output']} pings with output")
+                full = (r["store_pings"] == n and r["ping_time_equal"]
+                        and r["store_finite"] and r["written_px"] > 0)
+                _bound(f"soak {mode} {n} pings store complete, every ping "
+                       f"written", r["store_pings"], full, n)
+        ref, s = soak["ref"], soak["soak"]
+        cap = min(SOAK_RSS_CAP, SOAK_RSS_RATIO * ref["rss_delta_bytes"]
+                  + SOAK_RSS_SLACK)
+        _bound(f"soak {mode} {soak_pings} pings RSS delta (MiB)",
+               s["rss_delta_bytes"] * mb, s["rss_delta_bytes"] <= cap,
+               f"min(256, 1.5 x {ref['rss_delta_bytes'] * mb:.1f} + 32) = "
+               f"{cap * mb:.1f}")
+        dev_cap = SOAK_DEVICE_RATIO * ref["peak_device_bytes"]
+        _bound(f"soak {mode} {soak_pings} pings peak device memory (MiB)",
+               s["peak_device_bytes"] * mb,
+               s["peak_device_bytes"] <= dev_cap,
+               f"1.1 x {ref['peak_device_bytes'] * mb:.1f} = "
+               f"{dev_cap * mb:.1f}")
+        rates[f"soak {mode} {soak_pings} pings"] = s["pings_per_sec"]
+
+    det = torch_school_eval_soak.run(soak_pings)
+    print(f"detector soak: {det['n_pings']} pings x {det['n_range']}, "
+          f"{det['detections']} detections in {det['wall_s']:.3f} s = "
+          f"{det['pings_per_sec']:.1f} pings/s, RSS delta "
+          f"{det['rss_delta_bytes'] * mb:.1f} MiB [{card}]")
+    _bound(f"detector soak streamed == dense on {det['dense_equal_pings']} "
+           f"pings", det["dense_equal"], det["dense_equal"], True)
+    rates["detector soak"] = det["pings_per_sec"]
+
+    _check_path_launches(paths.counts)
+    print("phase 19 launches: " + ", ".join(
+        f"{k} {v}" for k, v in paths.counts.items()))
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {f"p19_{k}": {n: v for n, v in c.items() if n != "forwards"}
+            for k, c in paths.counts.items()}, rates
+
+
+
 RECIPES = ("baseline", "fast", "meta-early", "meta-late", "zarr")
 
 
@@ -3865,9 +4137,9 @@ def main(argv=None) -> int:
         parallel_worker(int(argv[1]), int(argv[2]), argv[3])
         return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(1, 19))),
-                    help="comma-separated subset of phases 1-18 (11 and 18 "
-                         "need 4 and 6, 17 needs 4)")
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 20))),
+                    help="comma-separated subset of phases 1-19 (11 and 18 "
+                         "need 4 and 6, 17 needs 4, 19 needs 6 and 12)")
     ap.add_argument("--recipe", choices=RECIPES,
                     help="also train a full recipe (baseline: 15000 x "
                          "batch 4; fast: 3750 x 16; meta-early / meta-late: "
@@ -3877,6 +4149,12 @@ def main(argv=None) -> int:
     ap.add_argument("--recipe-dtype", default="bfloat16",
                     choices=("bfloat16", "float32"),
                     help="train_dtype of --recipe")
+    ap.add_argument("--soak-pings", type=int, default=SOAK_PINGS,
+                    help="pings of phase 19's soak survey")
+    ap.add_argument("--trained-ckpt", default=None,
+                    help="phase 19's weights in place of phase 12's "
+                         "best.msgpack (a .msgpack of either package or a "
+                         ".pt)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if 11 in phases and not phases >= {4, 6}:
@@ -3886,6 +4164,10 @@ def main(argv=None) -> int:
     if 18 in phases and not phases >= {4, 6}:
         ap.error("phase 18 runs phase 4's echogram and holds its store to "
                  "phase 6's")
+    if 19 in phases and (6 not in phases
+                         or 12 not in phases and not args.trained_ckpt):
+        ap.error("phase 19 runs phase 6's survey with phase 12's trained "
+                 "best.msgpack (or --trained-ckpt)")
 
     import torch
     if not torch.cuda.is_available():
@@ -3914,7 +4196,7 @@ def main(argv=None) -> int:
                 torch, cuda_lib, ech_dir, reader, cfg, card)
             launches["binary_closing"] = \
                 by_path["memm_eval"]["binary_closing"]
-        if phases & {6, 7, 8, 11, 15, 16, 18}:
+        if phases & {6, 7, 8, 11, 15, 16, 18, 19}:
             sv, zreader = zarr_setup(torch, tmp)
         zarr_pred = None
         if 6 in phases:
@@ -3972,6 +4254,12 @@ def main(argv=None) -> int:
         if 18 in phases:
             paths, r = phase_surface(torch, cuda_lib, tmp, card, ech_dir,
                                      reader, cfg, sv, zreader, zarr_pred)
+            by_path.update(paths)
+            rates.update(r)
+        if 19 in phases:
+            paths, r = phase_trained(
+                torch, tmp, card, sv, args.trained_ckpt
+                or tmp / "train_ck_tr" / "best.msgpack", args.soak_pings)
             by_path.update(paths)
             rates.update(r)
         if args.recipe:

@@ -58,7 +58,6 @@ def make_synthetic_echogram(H, W, rng, frequencies=DEFAULT_FREQUENCIES,
                   ).astype(np.float32)
 
     labels = np.zeros((H, W), dtype=np.int16)
-    yy, xx = np.mgrid[0:H, 0:W]
     cats = [27, 1] + ([6] if unused_species else [])
     # always include two near-seabed schools (sandeel + other) so the
     # SchoolSeabed samplers have candidates — categories pinned, NOT
@@ -79,12 +78,19 @@ def make_synthetic_echogram(H, W, rng, frequencies=DEFAULT_FREQUENCIES,
             cy = rng.randint(int(0.15 * H),
                              max(int(0.6 * H), int(0.15 * H) + 1))
         cx = rng.randint(int(0.1 * W), max(int(0.9 * W), int(0.1 * W) + 1))
+        # the ellipse within its bounding box only: the same mask, filled
+        # in the same row-major order, as over the whole grid, at a cost
+        # that does not grow with the echogram (a 50 000-ping survey
+        # carries 200 schools)
+        y0, y1 = max(cy - ry, 0), min(cy + ry + 1, H)
+        x0, x1 = max(cx - rx, 0), min(cx + rx + 1, W)
+        yy, xx = np.mgrid[y0:y1, x0:x1]
         ellipse = (((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2) <= 1.0
-        ellipse &= ~below
-        labels[ellipse] = cat
+        ellipse &= ~below[y0:y1, x0:x1]
+        labels[y0:y1, x0:x1][ellipse] = cat
         # School backscatter inside the refine threshold window at 200 kHz
         for c in range(C):
-            data[:, :, c][ellipse] = rng.lognormal(
+            data[y0:y1, x0:x1, c][ellipse] = rng.lognormal(
                 np.log(3e-6), 0.4, size=int(ellipse.sum()))
 
     heave = rng.uniform(-0.05, 0.05, size=W)

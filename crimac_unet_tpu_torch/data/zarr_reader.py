@@ -36,9 +36,12 @@ from ..constants import DATA_BOUNDARY_VAL, LABEL_BOUNDARY_VAL
 from ..utils.grids import crop_bounds
 from .zarrlite import ZGroup, decode_cf_time
 
-# streaming-read budget for the seabed scan (elements per read ~= 64 MB of
-# float32); module-level so tests can shrink it to verify chunking
-_SEABED_READ_ELEMS = 16 * 2 ** 20
+# streaming-read budget for the seabed scan (elements per read ~= 16 MB of
+# float32; the JAX package reads ~64 MB).  The scan runs inside a survey's
+# first streaming call, so its read block is part of that call's host
+# memory, which must not grow with the survey beyond a few ping chunks.
+# Module-level so tests can shrink it to verify chunking
+_SEABED_READ_ELEMS = 4 * 2 ** 20
 
 # LSSS spells the depth columns without the trailing 'h'
 _OBJECT_RENAMES = {"upperdept": "upperdepth", "lowerdept": "lowerdepth",
@@ -376,14 +379,16 @@ class DataReaderZarr:
         vec = np.empty(total, dtype=int)
         has = np.empty(total, dtype=bool)
         bot = self.seabed["bottom_range"]
-        # ~64 MB float32 per read, aligned to the store's ping chunking
+        # ~16 MB float32 per read, aligned to the store's ping chunking
         step = max(1, _SEABED_READ_ELEMS // max(1, width))
         store_chunk = bot.chunks[0]
         step = max(store_chunk, (step // store_chunk) * store_chunk)
         for s in range(0, total, step):
-            m = np.nan_to_num(bot[s:s + step, :], nan=0.0)
+            # the read is a fresh array: NaN -> 0 in place, no second block
+            m = np.nan_to_num(bot[s:s + step, :], nan=0.0, copy=False)
             vec[s:s + len(m)] = m.argmax(axis=1)
             has[s:s + len(m)] = m.max(axis=1) > 0  # pings w/o seabed
+            del m          # before the next read allocates its block
         self._seabed_has = has
         self._seabed_vec = vec
 

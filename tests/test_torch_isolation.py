@@ -13,9 +13,11 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "crimac_unet_tpu_torch"
-# pandas and msgpack: the card's machine has none
+# pandas, msgpack, sklearn and psutil: the card's machine has none; bench
+# (the JAX package's benchmark) imports JAX
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ml_dtypes",
-             "crimac_unet_tpu", "pandas", "msgpack"}
+             "crimac_unet_tpu", "pandas", "msgpack", "sklearn", "psutil",
+             "bench"}
 
 
 def _imported_roots(path: Path):
@@ -29,7 +31,10 @@ def _imported_roots(path: Path):
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """The package, ``chip_smoke.py`` and the port's scripts
+    (``scripts/torch_*.py``)."""
+    return (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + sorted((REPO / "scripts").glob("torch_*.py")))
 
 
 @pytest.mark.parametrize("path", _port_files(),
