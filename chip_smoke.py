@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 1,4,6,18   # the matrix and JAX calls
     python3 chip_smoke.py --phases 1,6,12,19  # trained weights, soak
     python3 chip_smoke.py --phases 1,6,19 --trained-ckpt best.msgpack
+    python3 chip_smoke.py --phases 1,6,20     # where the time goes
 
 Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit; imports
 nothing of JAX or of the JAX package.  Phases, in order; any failure
@@ -203,6 +204,24 @@ raises and the script exits nonzero without its result line:
     (``U8_DF1`` ... ``SOAK_DEVICE_RATIO``); the first K1 and K3 call of
     each path held bit for bit to its plain version (the new overlap-16,
     700-range and soak geometries); launches ``p19_<path>``;
+20. where the time goes (needs 6), through the port's counterparts of
+    the JAX repo's measurement scripts at full width (seeded weights):
+    ``torch_roofline`` (every layer of the folded serving forward at
+    batch 32 and at the train batch 4 against max(FLOPs / 989.4 TFLOP/s,
+    bytes / 3.35 TB/s), K3 in the level-0 pool row and K2 beside
+    ``F.max_pool2d`` in every pool row, each held bit for bit to its
+    plain version first; the streaming-read probe, the whole folded
+    forward, the prefix diffs), ``torch_roofline_bwd`` (forward and
+    forward + backward per op, train-mode BatchNorm, the SGD update and
+    the port's full step at batch 8), ``torch_decomp`` (phase 6's first
+    chunk: full chunk, forward alone, K1 alone; the train step at batch 4
+    and 8 as device time, host enqueue and kernels a call),
+    ``torch_predict_timeline`` (the default and the serving preset's
+    passes over phase 6's survey as timelines with device-busy
+    intervals), ``torch_host_slab_profile`` and ``torch_host_scaling``
+    (the host components of a chunk, per preset, the decoder's threads
+    and concurrent chunk assemblies); every check beside its bound
+    (``ROW_TIME_MIN`` ... ``THREAD_BUSY_MAX``); launches ``p20_<path>``;
 
 and then one JSON line naming every kernel with its phase-2 numbers
 (slab geometry included), its launches on the main path that runs it
@@ -211,7 +230,8 @@ and then one JSON line naming every kernel with its phase-2 numbers
 training runs of phases 12-14, ``ex``, ``exu``, ``es`` and ``em`` the
 patch, unfolded, slab and metadata artifacts of phase 15, ``ob``, ``oe``,
 ``oz``, ``oz512``, ``oxp`` and ``oxs`` the onboarded paths of phase 17,
-``x_*`` the paths of phase 18, ``p19_*`` those of phase 19),
+``x_*`` the paths of phase 18, ``p19_*`` and ``p20_*`` those of
+phases 19 and 20),
 then the last
 line ``{"ok": true,
 "device": {...}}``.  ``--recipe baseline|fast|meta-early|meta-late|zarr``
@@ -3837,7 +3857,14 @@ def phase_surface(torch, cuda_lib, tmp, card, ech_dir, reader, cfg, sv,
 # fixtures are in brackets (docs/SESSIONS.md).
 SOAK_PINGS = 20_000           # 5x the longest echogram run before phase 19
 U8_DF1 = {"patch_u8": 2e-4, "serving_u8": 5e-3}   # [1e-5, 1.1e-3]
-U8_OUT_MAX = 1 / 510 + 2 ** -12     # output-u8 alone, max |d| [0.0022]
+# output-u8 alone, max |d| [0.0022]: the code's rounding is at most 1/510
+# (half of 1/255); the float16 output and the code's float16 dequant each
+# round by at most half a float16 ulp, 2^-12 for p in [0.5, 1), so the
+# law is 1/510 + 2^-11.  tests/test_torch_trained_checks.py
+# ::test_output_u8_deviation_law shows every correct implementation, the
+# JAX package's included, exceeds 1/510 + 2^-12 and meets this bound
+# (ROADMAP C F15).
+U8_OUT_MAX = 1 / 510 + 2 ** -11
 U8_OUT_DF1 = 1e-4             # output-u8 alone, |dF1| [0.0]
 EVAL_DF1 = 1e-4               # bfloat16 and uint8 against float32 [6.3e-6]
 GEOM_DF1 = 2e-3               # each serving arm against its oracle [1e-5,
@@ -4080,6 +4107,203 @@ def _trained_checks(torch, card, work, sv, ckpt, soak_pings, child):
 
 
 
+# -------------------------------------------------------------- phase 20
+# Where the time goes: the port's counterparts of the JAX repo's
+# measurement scripts (scripts/torch_roofline.py, torch_roofline_bwd.py,
+# torch_decomp.py, torch_predict_timeline.py, torch_host_slab_profile.py,
+# torch_host_scaling.py) at full width with seeded weights.  Each bound
+# was written before the first card run of phase 20 (PERF.md §6).
+ROW_TIME_MIN = 0.95           # every roofline row: time >= 0.95 x its bound
+                              # (a share above 105 % of a roofline is a
+                              # miscount or an L2 hit, not a fast kernel)
+DEVICE_BUSY_MAX = 1.0         # the timeline's device-busy share of the wall
+THREAD_BUSY_MAX = 1.05        # each thread's intervals (nested ones merged)
+                              # over the wall
+WTG_TRAIN_BATCH = 4           # the forward roofline's train batch
+WTG_BWD_BATCH = 8             # the training roofline's batch
+
+
+def _rows_within(label, rows):
+    """Each (name, ms, bound ms) at least ROW_TIME_MIN x its bound; prints
+    the row closest to its bound."""
+    for name, ms, b in rows:
+        check(ms >= ROW_TIME_MIN * b, f"{label} {name}: {ms:.4f} ms, below "
+                                      f"{ROW_TIME_MIN} x its bound {b:.4f} ms")
+    name, ms, b = max(rows, key=lambda r: r[2] / max(r[1], 1e-12))
+    print(f"  {label}: {len(rows)} rows, each time >= {ROW_TIME_MIN} x its "
+          f"bound; closest {name} {ms:.4f} ms against {b:.4f} ms "
+          f"({b / ms:.1%} of its roofline)")
+
+
+def _forward_rows(res):
+    rows = [("probe.read", res["probe"]["ms"], res["probe"]["bound_ms"])] \
+        if "probe" in res else []
+    for r in res["layers"]:
+        rows.append((r["layer"], r["ms"], r["bound_ms"]))
+        if r["kind"] == "pool":
+            rows += [(r["layer"] + " K2", r["k2_ms"], r["k2_bound_ms"]),
+                     (r["layer"] + " F.max_pool2d", r["maxpool2d_ms"],
+                      r["k2_bound_ms"])]
+            if "k3_ms" in r:
+                rows.append((r["layer"] + " K3", r["k3_ms"],
+                             r["k3_bound_ms"]))
+    rows.append(("whole forward", res["whole_forward_ms"],
+                 res["bound_floor_ms"]))
+    return rows
+
+
+def _pool_kernels_bit_equal(label, layers):
+    for r in layers:
+        if r["kind"] == "pool":
+            check(r["k2_equal"] and r["k3_equal"],
+                  f"{label} {r['layer']}: K2 {r['k2_equal']}, K3 "
+                  f"{r['k3_equal']} against their plain versions")
+    n = sum(r["kind"] == "pool" for r in layers)
+    print(f"  {label}: K2 and K3 bit-equal to their plain versions at the "
+          f"{n} pool shapes (bound: bit-equal)")
+
+
+def _quiet_launches(c, on, label):
+    """The kernels in ``on`` launched, every other one not."""
+    check(all(c[k] > 0 for k in on)
+          and all(v == 0 for k, v in c.items() if k not in on),
+          f"{label}: launches {c}, expected only {on}")
+
+
+def phase_where_time_goes(torch, cuda_lib, tmp, card, sv):
+    """Where the time goes (phase 20): each tool's ``run()`` at full
+    width, its tables printed, then every check beside its bound.
+    Returns (launches by path, rates)."""
+    sys.path.insert(0, str(ROOT))
+    from scripts import (torch_check_common as common, torch_decomp,
+                         torch_host_scaling, torch_host_slab_profile,
+                         torch_predict_timeline, torch_roofline,
+                         torch_roofline_bwd, torch_timing_common as tc)
+    t_phase = time.perf_counter()
+    check(tc.HBM_BYTES_PER_S == HBM_BYTES_PER_S,
+          f"the tools' HBM rate {tc.HBM_BYTES_PER_S} != {HBM_BYTES_PER_S}")
+    work = tmp / "p20"
+    work.mkdir(exist_ok=True)
+    by_path, rates = {}, {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        by_path[f"p20_{name}"] = dict(cuda_lib.launches)
+        return out
+
+    print(f"phase 20: where the time goes [{card}]")
+    fwd = counted("roofline", lambda: torch_roofline.run(
+        "cuda", batch=32, train_batch=WTG_TRAIN_BATCH))
+    bwd = counted("roofline_bwd", lambda: torch_roofline_bwd.run(
+        "cuda", batch=WTG_BWD_BATCH))
+    dpred = counted("decomp_predict",
+                    lambda: torch_decomp.run_predict("cuda", sv))
+    dtrain = counted("decomp_train", lambda: torch_decomp.run_train("cuda"))
+    cfg = common.model_config()
+    sd = torch_roofline.seeded_state_dict(cfg)
+    reader = common.zarr_reader(sv)
+    arms = {arm: counted(f"timeline_{arm}", lambda arm=arm:
+                         torch_predict_timeline.run_arm(
+                             arm, sd, reader, work, "cuda"))
+            for arm in ("default", "serving")}
+    prof = counted("host_profile", lambda: torch_host_slab_profile.run(
+        "cuda", sv, work=work))
+    scal = counted("host_scaling", lambda: torch_host_scaling.run(
+        "cuda", sv, work=work))
+
+    print(f"phase 20 checks [{card}]:")
+    _rows_within("forward roofline, batch 32", _forward_rows(fwd))
+    tb = fwd["train_batch"]
+    _rows_within(f"forward roofline, batch {WTG_TRAIN_BATCH}",
+                 _forward_rows(tb))
+    _pool_kernels_bit_equal("forward roofline, batch 32", fwd["layers"])
+    _pool_kernels_bit_equal(f"forward roofline, batch {WTG_TRAIN_BATCH}",
+                            tb["layers"])
+    brows = [(r["layer"] + " fwd", r["fwd_ms"], r["fwd_bound_ms"])
+             for r in bwd["layers"]]
+    brows += [(r["layer"] + " fwd+bwd", r["fwdbwd_ms"],
+               r["fwd_bound_ms"] + r["bwd_bound_ms"]) for r in bwd["layers"]]
+    _rows_within(f"training roofline, batch {WTG_BWD_BATCH}", brows)
+    _rows_within(f"train-mode BatchNorm, batch {WTG_BWD_BATCH}",
+                 [(r["layer"] + " fwd", r["fwd_ms"], r["bound_pass_ms"])
+                  for r in bwd["bn_rows"]]
+                 + [(r["layer"] + " fwd+bwd", r["fwdbwd_ms"],
+                     2 * r["bound_pass_ms"]) for r in bwd["bn_rows"]])
+    _rows_within("SGD update", [("update", bwd["update_ms"],
+                                 bwd["update_bound_ms"])])
+    _bound(f"training roofline: K4 a full step ({bwd['step_steps']} "
+           f"steps)",
+           bwd["step_k4_launches"], bwd["step_k4_launches"] == 1, 1)
+
+    nb = dpred["sub_batches"]
+    lp = dpred["launches"]
+    _bound("decomposition: K1 bit-equal to its plain version",
+           dpred["k1_equal"], dpred["k1_equal"], True)
+    _bound("decomposition: full chunk bit-equal to predict_reader's",
+           dpred["full_equal"], dpred["full_equal"], True)
+    _bound("decomposition: full chunk K1, K3, forwards",
+           (lp["gather_db"], lp["relu_pool_skip"], lp["forwards"]),
+           lp["gather_db"] == lp["relu_pool_skip"] == lp["forwards"] == nb
+           and lp["maxpool2x2"] == lp["binary_closing"] == 0,
+           f"sub-batches = {nb}")
+    for b, r in dtrain.items():
+        _bound(f"train decomposition {b}: K4 a full step",
+               r["full_step"]["launches"]["binary_closing"],
+               r["full_step"]["launches"]["binary_closing"] == 1, 1)
+        _bound(f"train decomposition {b}: K2 an eval-BN forward",
+               r["fwd_evalbn"]["launches"]["maxpool2x2"],
+               r["fwd_evalbn"]["launches"]["maxpool2x2"] == 1, 1)
+
+    for arm, r in arms.items():
+        _bound(f"timeline {arm}: store bit-identical to an uninstrumented "
+               f"pass", r["store_equal"], r["store_equal"], True)
+        busy = r["device_busy_share"]
+        _bound(f"timeline {arm}: device-busy share", busy,
+               busy is not None and 0 < busy <= DEVICE_BUSY_MAX,
+               f"(0, {DEVICE_BUSY_MAX}]")
+        worst = max(r["thread_busy_share"].items(), key=lambda kv: kv[1])
+        _bound(f"timeline {arm}: busiest thread {worst[0]} (share of the "
+               f"wall)", round(worst[1], 4), worst[1] <= THREAD_BUSY_MAX,
+               THREAD_BUSY_MAX)
+        rates[f"timeline {arm}"] = r["pings_per_sec"]
+
+    for label, res in (("host profile", prof), ("host scaling", scal)):
+        bad = [k for k, v in res["equal"].items() if not v]
+        _bound(f"{label}: components equal to the pipeline's chunk 0 "
+               f"({len(res['equal'])})", f"unequal {bad}", not bad,
+               "unequal []")
+    dt = scal["decoder_threads"]
+    _bound(f"host scaling: slab identical at decoder threads {sorted(dt)}",
+           all(r["slab_equal"] for r in dt.values()),
+           all(r["slab_equal"] for r in dt.values()), True)
+    cc = scal["concurrent"]
+    _bound(f"host scaling: slabs identical at {sorted(cc)} concurrent "
+           f"assemblies", all(r["slab_equal"] for r in cc.values()),
+           all(r["slab_equal"] for r in cc.values()), True)
+
+    for name, c in by_path.items():
+        if name in ("p20_roofline",):
+            _quiet_launches(c, ("maxpool2x2", "relu_pool_skip"), name)
+        elif name in ("p20_roofline_bwd",):
+            _quiet_launches(c, ("binary_closing",), name)
+        elif name == "p20_decomp_train":
+            _quiet_launches(c, ("binary_closing", "maxpool2x2"), name)
+        else:
+            _quiet_launches(c, ("gather_db", "relu_pool_skip"), name)
+            if name.startswith("p20_timeline"):
+                check(c["gather_db"] == c["relu_pool_skip"],
+                      f"{name}: launches {c}")
+    print("phase 20 launches: " + ", ".join(
+        f"{k} {v}" for k, v in by_path.items()))
+    rates["whole forward ms a call of 32"] = fwd["whole_forward_ms"]
+    rates["train step ms at batch 8"] = bwd["step_ms"]
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return by_path, rates
+
+
 RECIPES = ("baseline", "fast", "meta-early", "meta-late", "zarr")
 
 
@@ -4137,9 +4361,10 @@ def main(argv=None) -> int:
         parallel_worker(int(argv[1]), int(argv[2]), argv[3])
         return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(1, 20))),
-                    help="comma-separated subset of phases 1-19 (11 and 18 "
-                         "need 4 and 6, 17 needs 4, 19 needs 6 and 12)")
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 21))),
+                    help="comma-separated subset of phases 1-20 (11 and 18 "
+                         "need 4 and 6, 17 needs 4, 19 needs 6 and 12, 20 "
+                         "needs 6)")
     ap.add_argument("--recipe", choices=RECIPES,
                     help="also train a full recipe (baseline: 15000 x "
                          "batch 4; fast: 3750 x 16; meta-early / meta-late: "
@@ -4168,6 +4393,8 @@ def main(argv=None) -> int:
                          or 12 not in phases and not args.trained_ckpt):
         ap.error("phase 19 runs phase 6's survey with phase 12's trained "
                  "best.msgpack (or --trained-ckpt)")
+    if 20 in phases and 6 not in phases:
+        ap.error("phase 20 measures phase 6's survey")
 
     import torch
     if not torch.cuda.is_available():
@@ -4196,7 +4423,7 @@ def main(argv=None) -> int:
                 torch, cuda_lib, ech_dir, reader, cfg, card)
             launches["binary_closing"] = \
                 by_path["memm_eval"]["binary_closing"]
-        if phases & {6, 7, 8, 11, 15, 16, 18, 19}:
+        if phases & {6, 7, 8, 11, 15, 16, 18, 19, 20}:
             sv, zreader = zarr_setup(torch, tmp)
         zarr_pred = None
         if 6 in phases:
@@ -4260,6 +4487,10 @@ def main(argv=None) -> int:
             paths, r = phase_trained(
                 torch, tmp, card, sv, args.trained_ckpt
                 or tmp / "train_ck_tr" / "best.msgpack", args.soak_pings)
+            by_path.update(paths)
+            rates.update(r)
+        if 20 in phases:
+            paths, r = phase_where_time_goes(torch, cuda_lib, tmp, card, sv)
             by_path.update(paths)
             rates.update(r)
         if args.recipe:

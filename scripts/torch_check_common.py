@@ -1,7 +1,8 @@
 """Pieces shared by the port's trained-weight and survey-scale checks
 (``scripts/torch_u8_bound.py``, ``torch_eval_u8_bound.py``,
 ``torch_serving_geometry_ab.py``, ``torch_school_ap_trained.py``,
-``torch_soak50k.py``, ``torch_school_eval_soak.py``).
+``torch_soak50k.py``, ``torch_school_eval_soak.py``) and its
+where-the-time-goes tools (``torch_timing_common.py`` and its users).
 
 The flagship serving configuration, the checkpoint loader (a ``.msgpack``
 of either package or a reference ``.pt``), the bench survey, one
