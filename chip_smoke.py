@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases 1,6,12,19  # trained weights, soak
     python3 chip_smoke.py --phases 1,6,19 --trained-ckpt best.msgpack
     python3 chip_smoke.py --phases 1,6,20     # where the time goes
+    python3 chip_smoke.py --phases 1,6,12,21  # A/B benches, recipe arms
 
 Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit; imports
 nothing of JAX or of the JAX package.  Phases, in order; any failure
@@ -222,6 +223,27 @@ raises and the script exits nonzero without its result line:
     (the host components of a chunk, per preset, the decoder's threads
     and concurrent chunk assemblies); every check beside its bound
     (``ROW_TIME_MIN`` ... ``THREAD_BUSY_MAX``); launches ``p20_<path>``;
+21. the JAX repo's A/B benches and recipe studies (needs 6 and 12, or
+    ``--trained-ckpt``) through ``scripts/torch_*.py`` at full width with
+    phase 12's trained best.msgpack: ``torch_eval_quant_bench``
+    (evaluation of phase 6's survey at float32, bfloat16 and uint8
+    transfer: pings/s, the counts equal, |dF1| within ``EVAL_DF1``),
+    ``torch_school_serving_bench`` (live school detection, patch + bf16
+    and the serving arm, each equal to the detections read back from a
+    store the same runner wrote), ``torch_school_postproc_sweep`` (the big
+    held-out fixture predicted once, the 64-point threshold x min_area x
+    merge_gap grid from its stores on the host, the baseline and chosen
+    rows equal to live ``school_eval_survey`` runs at their settings),
+    ``torch_pooled_meta_bench`` (host, pooled and staged metadata steps
+    at batch 8), ``torch_static_grid`` (the static and dynamic arms, each
+    in a fresh subprocess: cold walls, grid and conv-shape counts, the
+    outputs within ``STATIC_MAX_DPROB``), and the recipe arms of
+    ``torch_fast_recipe`` (b16, b16_sqrt, b32), ``torch_meta_recipe``
+    (early, late) and ``torch_r3_session`` (ab_float32, ab_bfloat16), each
+    its exact configuration cut by ``RECIPE_CUT`` to one validation
+    (iterations 20, log_step 20, test_iter 10): losses finite, the pooled
+    (metadata) path on, K4 once per train and validation step, K2 once per
+    validation step; launches ``p21_<path>``;
 
 and then one JSON line naming every kernel with its phase-2 numbers
 (slab geometry included), its launches on the main path that runs it
@@ -230,8 +252,8 @@ and then one JSON line naming every kernel with its phase-2 numbers
 training runs of phases 12-14, ``ex``, ``exu``, ``es`` and ``em`` the
 patch, unfolded, slab and metadata artifacts of phase 15, ``ob``, ``oe``,
 ``oz``, ``oz512``, ``oxp`` and ``oxs`` the onboarded paths of phase 17,
-``x_*`` the paths of phase 18, ``p19_*`` and ``p20_*`` those of
-phases 19 and 20),
+``x_*`` the paths of phase 18, ``p19_*``, ``p20_*`` and ``p21_*``
+those of phases 19, 20 and 21),
 then the last
 line ``{"ok": true,
 "device": {...}}``.  ``--recipe baseline|fast|meta-early|meta-late|zarr``
@@ -4304,6 +4326,205 @@ def phase_where_time_goes(torch, cuda_lib, tmp, card, sv):
     return by_path, rates
 
 
+# -------------------------------------------------------------- phase 21
+# The JAX repo's A/B benches and recipe studies (scripts/torch_eval_quant_
+# bench.py ... torch_static_grid.py, torch_r3_session.py) at full width.
+# Each bound was written before the first card run of phase 21 (PERF.md
+# §6); timings are printed, not bounded.
+# Every recipe arm runs its exact configuration but for these three keys,
+# cut so that each arm takes one validation: 20 steps, then 10 validation
+# batches (b16: 20 x 16 crops, b32: 20 x 32, ab_*: 20 x 4).
+RECIPE_CUT = {"iterations": 20, "log_step": 20, "test_iter": 10}
+STATIC_MAX_DPROB = 4e-3       # the static-grid arms' max |dprob| (bf16 on
+                              # another sub-batch size; JAX's rule)
+FAST_PRESET_KEYS = ("batch_size", "lr", "lr_step", "lr_reduction",
+                    "momentum", "iterations", "test_iter", "log_step",
+                    "patch_size", "loss_type", "train_dtype", "random_seed")
+
+
+def _launch_law(label, c, want):
+    """Each kernel's count in ``c`` equal to ``want``'s (0 when absent)."""
+    got = {k: c[k] for k in KERNELS}
+    exp = {k: want.get(k, 0) for k in KERNELS}
+    _bound(f"{label} launches", got, got == exp, exp)
+
+
+def _recipe_checks(name, r):
+    """A recipe arm cut to RECIPE_CUT: every loss finite, the device pool
+    (and with metadata its pooled metadata path) on, K4 once per train and
+    validation step, K2 once per validation step, K1 and K3 never."""
+    _bound(f"{name}: steps", r["steps"],
+           r["steps"] == RECIPE_CUT["iterations"], RECIPE_CUT["iterations"])
+    _bound(f"{name}: every training loss finite", r["losses_finite"],
+           r["losses_finite"], True)
+    _bound(f"{name}: device pool on", r["pooled"], r["pooled"], True)
+    if "pooled_meta" in r:
+        _bound(f"{name}: pooled metadata path", r["pooled_meta"],
+               r["pooled_meta"], True)
+    _launch_law(name, r["launches"], {
+        "binary_closing": r["steps"] + r["val_steps"],
+        "maxpool2x2": r["val_steps"]})
+
+
+def phase_ab(torch, tmp, card, sv, ckpt):
+    """The A/B benches and recipe studies (phase 21): evaluation by
+    transfer dtype, live school detection and its store law, the detector
+    post-processing sweep held to live runs, pooled against host metadata
+    steps, the static grid's cold arms in subprocesses, and the fast,
+    metadata and float32 / bfloat16 recipe arms cut to one validation.
+    Returns (launches by path, rates)."""
+    import shutil
+
+    sys.path.insert(0, str(ROOT))
+    from crimac_unet_tpu_torch.config import load_yaml_config
+    from scripts import (torch_check_common as common, torch_eval_quant_bench,
+                         torch_fast_recipe, torch_meta_recipe,
+                         torch_pooled_meta_bench, torch_r3_session,
+                         torch_school_ap_trained, torch_school_postproc_sweep,
+                         torch_school_serving_bench, torch_static_grid)
+    t_phase = time.perf_counter()
+    work = tmp / "p21"
+    work.mkdir(exist_ok=True)
+    paths = common.Paths()
+    sd = common.state_dict(ckpt)
+    rates = {}
+    print("phase 21: weights " + (str(ckpt) if isinstance(ckpt, (str, Path))
+                                  else type(ckpt).__name__) + f" [{card}]")
+
+    ev = torch_eval_quant_bench.run(sd, sv, "cuda", paths=paths)
+    t32 = ev["transfers"]["float32"]
+    for td, r in ev["transfers"].items():
+        print(f"eval {td}: {r['pings_per_sec']:.1f} pings/s (walls "
+              f"{r['walls_s']} s, first pass {r['first_pass_s']:.2f} s), F1 "
+              f"{r['f1']:.6f}, scored {r['n_scored']}, positive "
+              f"{r['n_pos']} [{card}]")
+        rates[f"eval {td} transfer (trained)"] = r["pings_per_sec"]
+        if td != "float32":
+            _bound(f"eval {td} scored / positive counts",
+                   (r["n_scored"], r["n_pos"]),
+                   (r["n_scored"], r["n_pos"])
+                   == (t32["n_scored"], t32["n_pos"]),
+                   (t32["n_scored"], t32["n_pos"]))
+            _bound(f"eval {td} |dF1| vs float32", r["abs_dF1_vs_float32"],
+                   r["abs_dF1_vs_float32"] <= EVAL_DF1, EVAL_DF1)
+        c = paths.counts[f"evalq_{td}"]
+        _launch_law(f"eval {td} ({c['forwards']} sub-batches over 3 passes)",
+                    c, {"binary_closing": c["forwards"],
+                        "relu_pool_skip": c["forwards"]})
+
+    se = torch_school_serving_bench.run(sd, sv, "cuda", paths=paths)
+    for tag in torch_school_serving_bench.ARMS:
+        r = se[tag]
+        print(f"live school detection [{tag}]: {r['pings_per_sec']:.1f} "
+              f"pings/s (walls {r['walls_s']} s), detections "
+              f"{r['n_detections']} [{card}]")
+        rates[f"live school detection {tag} (trained)"] = r["pings_per_sec"]
+        _bound(f"school detection [{tag}]: live == from its store",
+               r["store_equal"], r["store_equal"], True)
+    for name in ("detect_patch", "detect_patch_store", "detect_serving",
+                 "detect_serving_store"):
+        c = paths.counts[name]
+        check(c["forwards"] > 0, f"{name}: no forwards")
+        _launch_law(f"{name} ({c['forwards']} forwards)", c,
+                    {"gather_db": c["forwards"],
+                     "relu_pool_skip": c["forwards"]})
+
+    val = torch_school_ap_trained.ensure_big_val_fixture(tmp / "p19")
+    sw = torch_school_postproc_sweep.run(sd, val, work / "preds_bigval",
+                                         "cuda", paths=paths,
+                                         log=lambda m: None)
+    print(f"sweep: {len(sw['rows'])} points from the stores of "
+          f"{sw['n_echograms']} echograms in {sw['sweep_s']:.1f} s "
+          f"({sw['sweep_s_per_point']:.3f} s a point, host); predict pass "
+          f"{sw['predict_s']:.2f} s [{card}]")
+    print(f"sweep baseline: {sw['baseline']}")
+    print(f"sweep chosen:   {sw['chosen']}")
+    _bound("sweep ground truth", sw["n_gt"],
+           sw["n_gt"] == torch_school_ap_trained.BIG_VAL_GT,
+           torch_school_ap_trained.BIG_VAL_GT)
+    for key in ("baseline", "chosen"):
+        _bound(f"sweep {key} row == a live school_eval_survey at its "
+               f"settings", sw["live"][key], sw["live"][key] == sw[key],
+               sw[key])
+    for name in ("sweep_predict", "sweep_live"):
+        c = paths.counts[name]
+        check(c["forwards"] > 0, f"{name}: no forwards")
+        _launch_law(f"{name} ({c['forwards']} forwards)", c,
+                    {"gather_db": c["forwards"],
+                     "relu_pool_skip": c["forwards"]})
+    rates["sweep ms a point (host)"] = sw["sweep_s_per_point"] * 1e3
+
+    pm = torch_pooled_meta_bench.run("cuda", paths=paths, log=lambda m: None)
+    print(f"pooled metadata training (batch {pm['batch']}): host "
+          f"{pm['host_ms']:.2f}, pooled {pm['pooled_ms']:.2f}, staged "
+          f"{pm['staged_ms']:.2f} ms a step, speedup_pooled_vs_host "
+          f"{pm['speedup_pooled_vs_host']:.2f}; first losses "
+          f"{pm['first_loss']} [{card}]")
+    for arm in ("host", "pooled", "staged"):
+        _bound(f"pooled metadata {arm}: every loss finite",
+               pm[f"{arm}_losses_finite"], pm[f"{arm}_losses_finite"], True)
+        _launch_law(f"pooled metadata {arm}", paths.counts[f"meta_{arm}"],
+                    {"binary_closing": pm["warmup"] + pm["steps"]})
+        rates[f"metadata ms a step, {arm}"] = pm[f"{arm}_ms"]
+
+    sg = torch_static_grid.run("cuda", work)
+    for arm in ("static", "dynamic"):
+        r = sg[arm]
+        print(f"static grid {arm} arm (fresh process): cold "
+              f"{r['cold_wall_s']:.3f} s = {r['pings_per_sec_cold']:.1f} "
+              f"pings/s, {r['n_chunks']} chunks, grids "
+              f"{r['distinct_predict_sigs']}, {len(r['distinct_mask_sigs'])} "
+              f"mask signatures, {r['conv_shapes']} conv shapes, launches "
+              f"{r['launches']} [{card}]")
+        rates[f"static grid {arm} cold"] = r["pings_per_sec_cold"]
+        paths.counts[f"static_grid_{arm}"] = dict(r["launches"],
+                                                  forwards=r["forwards"])
+        _launch_law(f"static grid {arm} ({r['forwards']} forwards)",
+                    r["launches"], {"gather_db": r["forwards"],
+                                    "relu_pool_skip": r["forwards"]})
+    n_static = len(sg["static"]["distinct_predict_sigs"])
+    n_dyn = len(sg["dynamic"]["distinct_predict_sigs"])
+    _bound("static grid: (R, C) signatures static, dynamic",
+           (n_static, n_dyn), n_static == 1 and n_dyn > 1, "(1, > 1)")
+    _bound("static grid: write masks identical",
+           sg["write_masks_identical"], sg["write_masks_identical"], True)
+    _bound("static grid: max |dprob| between the arms",
+           sg["max_abs_prob_diff"],
+           sg["max_abs_prob_diff"] <= STATIC_MAX_DPROB, STATIC_MAX_DPROB)
+
+    preset = load_yaml_config(ROOT / "crimac_unet_tpu_torch" / "configs"
+                              / "config_fast_train.yaml")
+    sq = torch_fast_recipe.ARMS["b16_sqrt"](train_fixture(tmp))
+    got = {k: sq[k] for k in FAST_PRESET_KEYS}
+    want = {k: preset[k] for k in FAST_PRESET_KEYS}
+    _bound("fast_config b16_sqrt == config_fast_train.yaml", got, got == want,
+           want)
+    out = work / "recipes.json"
+    arms = {}
+    for arm in torch_fast_recipe.ARMS:
+        arms[f"fast_{arm}"] = torch_fast_recipe.run_arm(
+            tmp, out, arm, paths, cut=RECIPE_CUT, device="cuda")
+    for late in (False, True):
+        arms["meta_late" if late else "meta_early"] = torch_meta_recipe.run(
+            tmp, out, late, paths, cut=RECIPE_CUT, device="cuda")
+    for dtype in ("float32", "bfloat16"):
+        arms[f"ab_{dtype}"] = torch_r3_session.stage_ab(
+            tmp, out, dtype, paths, device="cuda", **RECIPE_CUT)
+    for name, r in arms.items():
+        print(f"recipe arm {name} (cut: {RECIPE_CUT}): best F1 "
+              f"{r['best_F1']:.4f}, wall {r['wall_min'] * 60:.1f} s, "
+              f"{r['steps']} steps + {r['val_steps']} validation steps, "
+              f"launches {r['launches']} [{card}]")
+        _recipe_checks(name, r)
+        shutil.rmtree(Path(r["ckpt"]).parent, ignore_errors=True)
+
+    print("phase 21 launches: " + ", ".join(
+        f"{k} {v}" for k, v in paths.counts.items()))
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {f"p21_{k}": {n: v for n, v in c.items() if n != "forwards"}
+            for k, c in paths.counts.items()}, rates
+
+
 RECIPES = ("baseline", "fast", "meta-early", "meta-late", "zarr")
 
 
@@ -4314,22 +4535,23 @@ def run_recipe(torch, tmp, name, dtype, card):
     lr 0.01, lr_step 250), or the fast preset with the six metadata families
     early or late injected (scripts/meta_recipe.py: ``meta-early``,
     ``meta-late``)."""
-    from crimac_unet_tpu_torch.config import META_CHANNELS_ALL
     from crimac_unet_tpu_torch.pipeline.segpipe import SegPipeUNet
     from crimac_unet_tpu_torch.pipeline.train import run_training
-    kw = {"train_dtype": dtype}
+    sys.path.insert(0, str(ROOT))
+    from scripts import torch_fast_recipe, torch_meta_recipe
     if name == "zarr":
         root = zarr_train_fixture(tmp)
-        kw.update(data_mode="zarr", path_to_zarr_files=str(root))
+        cfg = recipe_config(root, train_dtype=dtype, data_mode="zarr",
+                            path_to_zarr_files=str(root))
+    elif name == "fast":      # the preset's settings have one home
+        cfg = torch_fast_recipe.ARMS["b16_sqrt"](train_fixture(tmp),
+                                                 train_dtype=dtype)
+    elif name.startswith("meta"):
+        cfg = torch_meta_recipe.meta_config(train_fixture(tmp),
+                                            name == "meta-late",
+                                            train_dtype=dtype)
     else:
-        root = train_fixture(tmp)
-    if name != "baseline" and name != "zarr":
-        kw.update(batch_size=16, lr=0.01, lr_step=250, iterations=3750,
-                  test_iter=250, log_step=625)
-    if name.startswith("meta"):
-        kw.update(meta_channels=META_CHANNELS_ALL,
-                  late_meta_inject=name == "meta-late")
-    cfg = recipe_config(root, **kw)
+        cfg = recipe_config(train_fixture(tmp), train_dtype=dtype)
     val_s = []
     restore = _timed_spy(torch, SegPipeUNet, "validate_model_training",
                          val_s)
@@ -4361,10 +4583,10 @@ def main(argv=None) -> int:
         parallel_worker(int(argv[1]), int(argv[2]), argv[3])
         return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(1, 21))),
-                    help="comma-separated subset of phases 1-20 (11 and 18 "
-                         "need 4 and 6, 17 needs 4, 19 needs 6 and 12, 20 "
-                         "needs 6)")
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 22))),
+                    help="comma-separated subset of phases 1-21 (11 and 18 "
+                         "need 4 and 6, 17 needs 4, 19 and 21 need 6 and 12, "
+                         "20 needs 6)")
     ap.add_argument("--recipe", choices=RECIPES,
                     help="also train a full recipe (baseline: 15000 x "
                          "batch 4; fast: 3750 x 16; meta-early / meta-late: "
@@ -4377,9 +4599,9 @@ def main(argv=None) -> int:
     ap.add_argument("--soak-pings", type=int, default=SOAK_PINGS,
                     help="pings of phase 19's soak survey")
     ap.add_argument("--trained-ckpt", default=None,
-                    help="phase 19's weights in place of phase 12's "
-                         "best.msgpack (a .msgpack of either package or a "
-                         ".pt)")
+                    help="phase 19's and 21's weights in place of phase "
+                         "12's best.msgpack (a .msgpack of either package or "
+                         "a .pt)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if 11 in phases and not phases >= {4, 6}:
@@ -4392,6 +4614,10 @@ def main(argv=None) -> int:
     if 19 in phases and (6 not in phases
                          or 12 not in phases and not args.trained_ckpt):
         ap.error("phase 19 runs phase 6's survey with phase 12's trained "
+                 "best.msgpack (or --trained-ckpt)")
+    if 21 in phases and (6 not in phases
+                         or 12 not in phases and not args.trained_ckpt):
+        ap.error("phase 21 runs phase 6's survey with phase 12's trained "
                  "best.msgpack (or --trained-ckpt)")
     if 20 in phases and 6 not in phases:
         ap.error("phase 20 measures phase 6's survey")
@@ -4423,7 +4649,7 @@ def main(argv=None) -> int:
                 torch, cuda_lib, ech_dir, reader, cfg, card)
             launches["binary_closing"] = \
                 by_path["memm_eval"]["binary_closing"]
-        if phases & {6, 7, 8, 11, 15, 16, 18, 19, 20}:
+        if phases & {6, 7, 8, 11, 15, 16, 18, 19, 20, 21}:
             sv, zreader = zarr_setup(torch, tmp)
         zarr_pred = None
         if 6 in phases:
@@ -4491,6 +4717,11 @@ def main(argv=None) -> int:
             rates.update(r)
         if 20 in phases:
             paths, r = phase_where_time_goes(torch, cuda_lib, tmp, card, sv)
+            by_path.update(paths)
+            rates.update(r)
+        if 21 in phases:
+            paths, r = phase_ab(torch, tmp, card, sv, args.trained_ckpt
+                                or tmp / "train_ck_tr" / "best.msgpack")
             by_path.update(paths)
             rates.update(r)
         if args.recipe:

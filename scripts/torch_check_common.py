@@ -1,8 +1,10 @@
 """Pieces shared by the port's trained-weight and survey-scale checks
 (``scripts/torch_u8_bound.py``, ``torch_eval_u8_bound.py``,
 ``torch_serving_geometry_ab.py``, ``torch_school_ap_trained.py``,
-``torch_soak50k.py``, ``torch_school_eval_soak.py``) and its
-where-the-time-goes tools (``torch_timing_common.py`` and its users).
+``torch_soak50k.py``, ``torch_school_eval_soak.py``), its
+where-the-time-goes tools (``torch_timing_common.py`` and its users) and
+its A/B benches and recipe studies (``torch_eval_quant_bench.py`` ...
+``torch_static_grid.py``).
 
 The flagship serving configuration, the checkpoint loader (a ``.msgpack``
 of either package or a reference ``.pt``), the bench survey, one
@@ -134,17 +136,21 @@ class Paths:
         self.probe = probe
 
     @contextlib.contextmanager
-    def path(self, name, runner):
+    def path(self, name, runner=None, device=None):
+        """Count the launches of the block as path ``name``; without a
+        ``runner`` (a training run) the block's forwards count as 0 and
+        ``device`` is the one synchronized."""
         from crimac_unet_tpu_torch.ops import cuda_lib
+        dev = runner.device if runner is not None else device
         outer = self.probe(name) if self.probe else contextlib.nullcontext()
         with outer:
-            synchronize(runner.device)
+            synchronize(dev)
             cuda_lib.reset_launches()
-            f0 = runner.forwards
+            f0 = runner.forwards if runner is not None else 0
             yield
-            synchronize(runner.device)
-            self.counts[name] = dict(cuda_lib.launches,
-                                     forwards=runner.forwards - f0)
+            synchronize(dev)
+            f1 = runner.forwards if runner is not None else 0
+            self.counts[name] = dict(cuda_lib.launches, forwards=f1 - f0)
 
 
 def predict_survey(runner, reader, preload_n_pings=1000):

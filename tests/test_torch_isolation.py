@@ -14,20 +14,29 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "crimac_unet_tpu_torch"
 # pandas, msgpack, sklearn and psutil: the card's machine has none; bench
-# (the JAX package's benchmark) imports JAX
+# (the JAX package's benchmark) imports JAX, and so do the JAX repo's
+# scripts that a port script could import by their bare names
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "ml_dtypes",
              "crimac_unet_tpu", "pandas", "msgpack", "sklearn", "psutil",
-             "bench"}
+             "bench", "r3_tpu_session", "fast_recipe", "meta_recipe",
+             "school_ap_trained", "eval_quant_bench", "school_serving_bench",
+             "school_postproc_sweep", "pooled_meta_bench", "static_grid_tpu"}
 
 
 def _imported_roots(path: Path):
+    """The top-level modules a file imports, and the modules it imports
+    from the repo's ``scripts`` directory (``scripts.x`` yields ``x``)."""
     tree = ast.parse(path.read_text(), str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for a in node.names:
-                yield a.name.split(".")[0]
+                parts = a.name.split(".")
+                yield from parts[:2] if parts[0] == "scripts" else parts[:1]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module.split(".")[0]
+            parts = node.module.split(".")
+            yield from parts[:2] if parts[0] == "scripts" else parts[:1]
+            if node.module == "scripts":
+                yield from (a.name for a in node.names)
 
 
 def _port_files():
