@@ -33,7 +33,9 @@ raises and the script exits nonzero without its result line:
    first chunk's whole grid (N = 1; uint8, bfloat16 and float32 slabs,
    scaled and not, shipped short of the grid in rows and columns), K3
    at (1, H16, W16, 64); K4 also at the train step's mask shapes
-   (4, 256, 256) and (16, 256, 256); each kernel called as its
+   (B, 256, 256) and K2 at the validation step's (B, 256, 256, 64) for
+   every training batch B the paths run (K4 4, 8, 16, 32; K2 4, 16,
+   32); each kernel called as its
    ``torch.ops.crimac.*`` operator, as an exported graph calls it, held
    to its wrapper and its plain version; then the sample pools' gathers at
    the training batch (4, 256, 256): ``ZarrSamplePool`` on the phase-13
@@ -237,13 +239,17 @@ raises and the script exits nonzero without its result line:
     ``torch_pooled_meta_bench`` (host, pooled and staged metadata steps
     at batch 8), ``torch_static_grid`` (the static and dynamic arms, each
     in a fresh subprocess: cold walls, grid and conv-shape counts, the
-    outputs within ``STATIC_MAX_DPROB``), and the recipe arms of
+    outputs within ``STATIC_MAX_DPROB``; K1 and K3 then held to their
+    plain versions at every sub-batch size the arms ran), and the recipe
+    arms of
     ``torch_fast_recipe`` (b16, b16_sqrt, b32), ``torch_meta_recipe``
     (early, late) and ``torch_r3_session`` (ab_float32, ab_bfloat16), each
     its exact configuration cut by ``RECIPE_CUT`` to one validation
     (iterations 20, log_step 20, test_iter 10): losses finite, the pooled
     (metadata) path on, K4 once per train and validation step, K2 once per
-    validation step; launches ``p21_<path>``;
+    validation step; the first call of every kernel on each path held
+    bit for bit to its plain version, and the kernels held equal to those
+    the path launched; launches ``p21_<path>``;
 
 and then one JSON line naming every kernel with its phase-2 numbers
 (slab geometry included), its launches on the main path that runs it
@@ -276,6 +282,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+# the recipe's fixture and settings and the scalars logger, shared with
+# the port's scripts (scripts/ sits beside this file)
+from scripts.torch_check_common import (Scalars, recipe_config,  # noqa: E402
+                                        train_fixture)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
 F32_INSTR_PER_S = F32_FLOP_PER_S / 2   # an FFMA is 2 flops, 1 instruction
@@ -591,8 +601,9 @@ def phase_kernels(torch, cuda_lib, card, reader, cfg):
               f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}) [{card}]")
     # K2 at the training paths' validation shapes: batch 4 (the reference
-    # recipe) and 16 (the fast preset), patch 256
-    for tb in (4, 16):
+    # recipe), 16 (the fast preset and the metadata recipe) and 32 (the
+    # fast recipe's b32 arm), patch 256
+    for tb in (4, 16, 32):
         tshape = (tb, 256, 256, cfg["start_filts"])
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(tshape, generator=torch.Generator().manual_seed(
@@ -978,9 +989,10 @@ def phase_closing(torch, card, reader, cfg):
           f"{host_ms(lambda: binary_closing(m, c)):.4f} ms a call), plain "
           f"{r['plain_ms']:.4f} ms, "
           f"bound {b:.4f} ms ({by}) [{card}]")
-    # the train step's mask shapes: batch 4 (the reference recipe) and 16
-    # (the fast preset), patch 256
-    for tb in (4, 16):
+    # the train step's mask shapes: batch 4 (the reference recipe), 8 (the
+    # pooled metadata bench), 16 (the fast preset and the metadata recipe)
+    # and 32 (the fast recipe's b32 arm), patch 256
+    for tb in (4, 8, 16, 32):
         m = (torch.rand((tb, 256, 256), generator=g) < 0.4).to(dev)
         c = _box_clips(torch, tb, 256, 256).to(dev)
         check(torch.equal(binary_closing(m, c),
@@ -2038,56 +2050,6 @@ def phase_school(torch, cuda_lib, tmp, cfg, cases, card):
 
 
 # -------------------------------------------------------------- phase 12
-def train_fixture(tmp):
-    """The reference recipe's fixture (scripts/r3_tpu_session.py:51-60)
-    built with the port's make_survey_dir: 2017 three 700 x 1400
-    echograms (seed 41), 2016 two 700 x 1200 (seed 42), 6 schools each."""
-    from crimac_unet_tpu_torch.data.fixtures import make_survey_dir
-    root = tmp / "train_memm"
-    if not root.is_dir():
-        t0 = time.perf_counter()
-        make_survey_dir(root, year=2017, n_echograms=3, H=700, W=1400,
-                        seed=41, n_schools=6)
-        make_survey_dir(root, year=2016, n_echograms=2, H=700, W=1200,
-                        seed=42, n_schools=6)
-        print(f"train fixture written in {time.perf_counter() - t0:.1f} s")
-    return root
-
-
-def recipe_config(root, **kw):
-    """The reference recipe's settings (scripts/r3_tpu_session.py:63-78):
-    the flagship U-Net, batch 4, lr 0.005 halved every 1000 steps, 15000
-    iterations, validation every 2500 over 1000 batches; device pool
-    auto, on the card."""
-    from crimac_unet_tpu_torch.config import parse_config_options
-    return parse_config_options(dict({
-        "frequencies": [18, 38, 120, 200], "data_mode": "memm",
-        "path_to_echograms": str(root), "patch_size": [256, 256],
-        "loss_type": "CE", "batch_size": 4, "lr": 0.005,
-        "lr_reduction": 0.5, "momentum": 0.95, "iterations": 15000,
-        "test_iter": 1000, "log_step": 2500, "lr_step": 1000,
-        "num_workers": 2, "partition_train": "selected surveys",
-        "train_surveys": [2017], "validation_surveys": [2016],
-        "partition_predict": "all surveys", "evaluation_surveys": [],
-        "save_prediction_surveys": [], "eval_mode": "all",
-        "patch_overlap": 20, "random_seed": 10, "depth": 5,
-        "start_filts": 64, "train_dtype": "bfloat16",
-        "use_device_pool": "auto", "device": "cuda"}, **kw))
-
-
-class _Scalars:
-    """A TensorBoard-style logger that keeps the scalars."""
-
-    def __init__(self):
-        self.rows = []
-
-    def add_scalar(self, tag, value, global_step):
-        self.rows.append((tag, float(value), int(global_step)))
-
-    def values(self, tag):
-        return [v for t, v, _ in self.rows if t == tag]
-
-
 def _spy(obj, name, before=None, after=None):
     """Wrap ``obj.name``; returns a restore callable."""
     real = getattr(obj, name)
@@ -2166,7 +2128,7 @@ def train_path(torch, cuda_lib, tmp, card, cfg, tag, pool_type):
                 _timed_spy(torch, SegPipeUNet, "validate_model_training",
                            val_s),
                 _timed_spy(torch, pool_type, "__init__", upload_s)]
-    log = _Scalars()
+    log = Scalars()
     try:
         cuda_lib.reset_launches()
         torch.cuda.reset_peak_memory_stats()
@@ -2882,7 +2844,7 @@ def parallel_paths(torch, cuda_lib, tmp, mesh_devices, rank):
     # what differs is the distribution's)
     step_s = []
     restore = _timed_spy(torch, SegPipeUNet, "train_step", step_s)
-    log = _Scalars()
+    log = Scalars()
     torch.backends.cudnn.deterministic = True
     try:
         sp = counted("train", lambda: run_training(
@@ -3897,50 +3859,73 @@ SOAK_DEVICE_RATIO = 1.1       # peak device memory against 4000 pings
 PREDICT_PATHS = ("u8_", "geom_", "school_ap", "soak_patch", "soak_slab")
 
 
-def _first_call_probe(torch, card):
-    """A ``Paths`` probe: within one path, the first K1 (``gather_db``, as
-    the runner calls it) and the first K3 (``relu_pool_skip``, as the
-    U-Net calls it) are held bit for bit to their plain versions on the
-    same inputs, right after the call (plain versions launch no kernel)."""
+def _first_call_probe(torch, card, counts=None):
+    """A ``Paths`` probe: within one path, the first call of each kernel
+    is held bit for bit to its plain version on the same inputs, right
+    after the call (plain versions launch no kernel): K1 (``gather_db``,
+    as the runner calls it) and K3 (``relu_pool_skip``, as the U-Net
+    calls it), and with ``counts`` (the ``Paths``' counts, read when the
+    path ends) also K2 (``maxpool2x2``, as the U-Net calls it) and K4
+    (``binary_closing``, as the label chain calls it); then the kernels
+    held must be those the path launched."""
     import contextlib
     from crimac_unet_tpu_torch.models import unet
+    from crimac_unet_tpu_torch.ops import label_ops
+    from crimac_unet_tpu_torch.ops.closing import binary_closing_reference
     from crimac_unet_tpu_torch.ops.gather_db import gather_db_reference
-    from crimac_unet_tpu_torch.ops.pool import relu_pool_skip_reference
+    from crimac_unet_tpu_torch.ops.pool import (maxpool2x2_reference,
+                                                relu_pool_skip_reference)
     from crimac_unet_tpu_torch.pipeline import runner
+
+    def same(out, want):
+        if isinstance(out, tuple):
+            return all(g.is_cuda and equal_nan(torch, g, w)
+                       for g, w in zip(out, want))
+        return out.is_cuda and equal_nan(torch, out, want)
+    # kernel -> (module, attribute, plain version)
+    sites = {"gather_db": (runner, "gather_db", gather_db_reference),
+             "relu_pool_skip": (unet, "relu_pool_skip",
+                                relu_pool_skip_reference)}
+    if counts is not None:
+        sites.update(maxpool2x2=(unet, "maxpool2x2", maxpool2x2_reference),
+                     binary_closing=(label_ops, "binary_closing",
+                                     binary_closing_reference))
 
     @contextlib.contextmanager
     def probe(name):
         seen = {}
 
-        def k1(*args, **kw):
-            out = real_k1(*args, **kw)
-            if "gather_db" not in seen:
-                want = gather_db_reference(*args, **kw)
-                check(out.is_cuda and equal_nan(torch, out, want),
-                      f"{name}: gather_db != plain at {tuple(out.shape)} "
-                      f"from slab {tuple(args[0].shape)} {args[0].dtype}")
-                seen["gather_db"] = tuple(out.shape)
-            return out
-
-        def k3(x):
-            out = real_k3(x)
-            if "relu_pool_skip" not in seen:
-                for got, want in zip(out, relu_pool_skip_reference(x)):
-                    check(got.is_cuda and equal_nan(torch, got, want),
-                          f"{name}: relu_pool_skip != plain at "
-                          f"{tuple(x.shape)}")
-                seen["relu_pool_skip"] = tuple(x.shape)
-            return out
-        real_k1, real_k3 = runner.gather_db, unet.relu_pool_skip
-        runner.gather_db, unet.relu_pool_skip = k1, k3
+        def spy(kernel, real, plain):
+            def call(*args, **kw):
+                out = real(*args, **kw)
+                if kernel not in seen:
+                    # K1 by its output (its input is the slab), the
+                    # others by their input
+                    shape = tuple((out if kernel == "gather_db"
+                                   else args[0]).shape)
+                    check(same(out, plain(*args, **kw)),
+                          f"{name}: {kernel} != plain at {shape} from "
+                          f"{tuple(args[0].shape)} {args[0].dtype}")
+                    seen[kernel] = shape
+                return out
+            return call
+        reals = {k: getattr(mod, attr) for k, (mod, attr, _) in sites.items()}
+        for k, (mod, attr, plain) in sites.items():
+            setattr(mod, attr, spy(k, reals[k], plain))
         try:
             yield
         finally:
-            runner.gather_db, unet.relu_pool_skip = real_k1, real_k3
-        predicts = name.startswith(PREDICT_PATHS)
-        check("relu_pool_skip" in seen
-              and ("gather_db" in seen) == predicts,
-              f"{name}: first calls held {seen}")
+            for k, (mod, attr, _) in sites.items():
+                setattr(mod, attr, reals[k])
+        if counts is None:
+            predicts = name.startswith(PREDICT_PATHS)
+            check("relu_pool_skip" in seen
+                  and ("gather_db" in seen) == predicts,
+                  f"{name}: first calls held {seen}")
+        else:
+            launched = {k for k in KERNELS if counts[name][k] > 0}
+            check(set(seen) == launched, f"{name}: first calls held "
+                                         f"{seen}, launched {launched}")
         print(f"{name}: first call bit-equal to plain: "
               + ", ".join(f"{k} {v}" for k, v in seen.items()) + f" [{card}]")
     return probe
@@ -4337,9 +4322,6 @@ def phase_where_time_goes(torch, cuda_lib, tmp, card, sv):
 RECIPE_CUT = {"iterations": 20, "log_step": 20, "test_iter": 10}
 STATIC_MAX_DPROB = 4e-3       # the static-grid arms' max |dprob| (bf16 on
                               # another sub-batch size; JAX's rule)
-FAST_PRESET_KEYS = ("batch_size", "lr", "lr_step", "lr_reduction",
-                    "momentum", "iterations", "test_iter", "log_step",
-                    "patch_size", "loss_type", "train_dtype", "random_seed")
 
 
 def _launch_law(label, c, want):
@@ -4366,17 +4348,60 @@ def _recipe_checks(name, r):
         "maxpool2x2": r["val_steps"]})
 
 
-def phase_ab(torch, tmp, card, sv, ckpt):
+def _hold_sub_batches(torch, card, reader, cfg, batches):
+    """K1 (within one ulp, as phase 2) and K3 (bit-equal) against their
+    plain versions at each forward sub-batch size in ``batches``: the
+    static-grid arms run in processes of their own, out of the first-call
+    probe's reach.  K1 over the main path's first-chunk slab (float32 and
+    bfloat16) with its patch starts repeated to B, K3 on seeded (B, 256,
+    256, 64) bfloat16 with NaN and +-Inf."""
+    import numpy as np
+    from crimac_unet_tpu_torch.ops.gather_db import (gather_db,
+                                                     gather_db_reference)
+    from crimac_unet_tpu_torch.ops.pool import (relu_pool_skip,
+                                                relu_pool_skip_reference)
+    dev = torch.device("cuda")
+    win = tuple(cfg["patch_size"])
+    raw, y0s, x0s, border, _, _ = first_chunk_inputs(torch, reader, cfg)
+    for b in batches:
+        idx = np.arange(b) % len(y0s)
+        y0 = torch.from_numpy(np.ascontiguousarray(y0s[idx])).to(dev)
+        x0 = torch.from_numpy(np.ascontiguousarray(x0s[idx])).to(dev)
+        for sdtype in (torch.float32, torch.bfloat16):
+            args = (raw.to(dev, sdtype), y0, x0, win, border, False,
+                    torch.bfloat16)
+            err, ok = max_ulp_err(torch, gather_db(*args),
+                                  gather_db_reference(*args))
+            torch.cuda.synchronize()
+            check(ok, f"gather_db off by more than one ulp at ({b}, "
+                      f"{win[0]}, {win[1]}, {raw.shape[2]}) from a "
+                      f"{sdtype} slab: {err}")
+        x = torch.randn((b, *win, cfg["start_filts"]),
+                        generator=torch.Generator().manual_seed(SEED + b))
+        x.view(-1)[:x.numel():9973] = float("nan")
+        x.view(-1)[1:x.numel():10007] = float("inf")
+        x = x.to(dev, torch.bfloat16)
+        for got, want in zip(relu_pool_skip(x), relu_pool_skip_reference(x)):
+            check(equal_nan(torch, got, want),
+                  f"relu_pool_skip != plain at {tuple(x.shape)}")
+        torch.cuda.synchronize()
+    print(f"static grid sub-batches {sorted(batches)}: gather_db within one "
+          f"ulp, relu_pool_skip bit-equal to plain [{card}]")
+
+
+def phase_ab(torch, tmp, card, sv, ckpt, reader, cfg):
     """The A/B benches and recipe studies (phase 21): evaluation by
     transfer dtype, live school detection and its store law, the detector
     post-processing sweep held to live runs, pooled against host metadata
     steps, the static grid's cold arms in subprocesses, and the fast,
     metadata and float32 / bfloat16 recipe arms cut to one validation.
+    Every in-process path holds the first call of each kernel it launches
+    to its plain version (``_first_call_probe``); the static-grid arms'
+    sub-batch sizes are held after them (``_hold_sub_batches``).
     Returns (launches by path, rates)."""
     import shutil
 
     sys.path.insert(0, str(ROOT))
-    from crimac_unet_tpu_torch.config import load_yaml_config
     from scripts import (torch_check_common as common, torch_eval_quant_bench,
                          torch_fast_recipe, torch_meta_recipe,
                          torch_pooled_meta_bench, torch_r3_session,
@@ -4386,6 +4411,7 @@ def phase_ab(torch, tmp, card, sv, ckpt):
     work = tmp / "p21"
     work.mkdir(exist_ok=True)
     paths = common.Paths()
+    paths.probe = _first_call_probe(torch, card, paths.counts)
     sd = common.state_dict(ckpt)
     rates = {}
     print("phase 21: weights " + (str(ckpt) if isinstance(ckpt, (str, Path))
@@ -4417,8 +4443,13 @@ def phase_ab(torch, tmp, card, sv, ckpt):
         r = se[tag]
         print(f"live school detection [{tag}]: {r['pings_per_sec']:.1f} "
               f"pings/s (walls {r['walls_s']} s), detections "
-              f"{r['n_detections']} [{card}]")
+              f"{r['n_detections']}; prediction alone "
+              f"{r['predict_pings_per_sec']:.1f} pings/s (walls "
+              f"{r['predict_walls_s']} s): detector {r['detector_s']:.3f} s, "
+              f"share {r['detector_share']:.3f} [{card}]")
         rates[f"live school detection {tag} (trained)"] = r["pings_per_sec"]
+        rates[f"prediction alone {tag} (trained)"] = \
+            r["predict_pings_per_sec"]
         _bound(f"school detection [{tag}]: live == from its store",
                r["store_equal"], r["store_equal"], True)
     for name in ("detect_patch", "detect_patch_store", "detect_serving",
@@ -4474,7 +4505,8 @@ def phase_ab(torch, tmp, card, sv, ckpt):
               f"{r['cold_wall_s']:.3f} s = {r['pings_per_sec_cold']:.1f} "
               f"pings/s, {r['n_chunks']} chunks, grids "
               f"{r['distinct_predict_sigs']}, {len(r['distinct_mask_sigs'])} "
-              f"mask signatures, {r['conv_shapes']} conv shapes, launches "
+              f"mask signatures, {r['conv_shapes']} conv shapes, "
+              f"sub-batches {r['sub_batches']}, launches "
               f"{r['launches']} [{card}]")
         rates[f"static grid {arm} cold"] = r["pings_per_sec_cold"]
         paths.counts[f"static_grid_{arm}"] = dict(r["launches"],
@@ -4492,13 +4524,12 @@ def phase_ab(torch, tmp, card, sv, ckpt):
            sg["max_abs_prob_diff"],
            sg["max_abs_prob_diff"] <= STATIC_MAX_DPROB, STATIC_MAX_DPROB)
 
-    preset = load_yaml_config(ROOT / "crimac_unet_tpu_torch" / "configs"
-                              / "config_fast_train.yaml")
-    sq = torch_fast_recipe.ARMS["b16_sqrt"](train_fixture(tmp))
-    got = {k: sq[k] for k in FAST_PRESET_KEYS}
-    want = {k: preset[k] for k in FAST_PRESET_KEYS}
-    _bound("fast_config b16_sqrt == config_fast_train.yaml", got, got == want,
-           want)
+    _hold_sub_batches(torch, card, reader, cfg, {
+        b for arm in ("static", "dynamic") for b in sg[arm]["sub_batches"]})
+
+    diff = torch_fast_recipe.preset_differences(train_fixture(tmp))
+    _bound("fast_config b16_sqrt differs from config_fast_train.yaml at",
+           diff, not diff, {})
     out = work / "recipes.json"
     arms = {}
     for arm in torch_fast_recipe.ARMS:
@@ -4555,7 +4586,7 @@ def run_recipe(torch, tmp, name, dtype, card):
     val_s = []
     restore = _timed_spy(torch, SegPipeUNet, "validate_model_training",
                          val_s)
-    log = _Scalars()
+    log = Scalars()
     try:
         t0 = time.perf_counter()
         sp = run_training(cfg, tmp / f"recipe_{name}_{dtype}", logger=log,
@@ -4721,7 +4752,8 @@ def main(argv=None) -> int:
             rates.update(r)
         if 21 in phases:
             paths, r = phase_ab(torch, tmp, card, sv, args.trained_ckpt
-                                or tmp / "train_ck_tr" / "best.msgpack")
+                                or tmp / "train_ck_tr" / "best.msgpack",
+                                reader, cfg)
             by_path.update(paths)
             rates.update(r)
         if args.recipe:

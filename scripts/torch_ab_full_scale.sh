@@ -10,6 +10,11 @@
 #         (torch_school_serving_bench.py), then the pooled metadata steps
 #         (torch_pooled_meta_bench.py) and the static grid's cold arms
 #         (torch_static_grid.py, run twice);
+#   detect  the reference recipe's 15 000 steps at bfloat16 alone, then on
+#         its checkpoint live school detection beside prediction alone in
+#         one process (the detector's share), then the static grid's cold
+#         arms in both orders, twice each (what a first process pays
+#         against what an arm costs): about 12 minutes;
 #   arms  the fast recipe's arms b16, b16_sqrt and b32
 #         (torch_fast_recipe.py), then the metadata recipe early and late
 #         (torch_meta_recipe.py): about 30 minutes.
@@ -17,7 +22,7 @@
 # Nothing trained outlives the run but the JSON under OUT (a checkpoint
 # is over what a chip call brings back).
 #
-#   bash scripts/torch_ab_full_scale.sh [WORK] [OUT] [ab|arms|all]
+#   bash scripts/torch_ab_full_scale.sh [WORK] [OUT] [ab|detect|arms|all]
 set -euo pipefail
 cd "$(dirname "$0")/.."
 WORK=${1:-build/torch_ab_full}
@@ -42,6 +47,19 @@ if [[ $PART == ab || $PART == all ]]; then
     for run in 1 2; do
         python3 scripts/torch_static_grid.py --work "$WORK" \
             --out "$OUT/static_grid_$run.json"
+    done
+fi
+if [[ $PART == detect ]]; then
+    python3 scripts/torch_r3_session.py --stages ab_bf16 \
+        --work "$WORK" --out "$OUT/r3_results.json"
+    python3 scripts/torch_school_serving_bench.py \
+        --ckpt "$WORK/ckpt_bfloat16/best.msgpack" --work "$WORK" \
+        --out "$OUT/school_serving_bench.json"
+    for run in 1 2; do
+        for order in dynamic,static static,dynamic; do
+            python3 scripts/torch_static_grid.py --work "$WORK" \
+                --order "$order" --out "$OUT/static_grid_${order/,/_}_$run.json"
+        done
     done
 fi
 if [[ $PART == arms || $PART == all ]]; then

@@ -260,6 +260,57 @@ def card_name(device) -> str:
         else torch.cuda.get_device_name(0)
 
 
+def train_fixture(tmp) -> Path:
+    """The reference recipe's fixture under ``tmp`` (the JAX repo's
+    ``scripts/r3_tpu_session.py:51-60``) built with the port's
+    ``make_survey_dir``: 2017 three 700 x 1400 echograms (seed 41), 2016
+    two 700 x 1200 (seed 42), 6 schools each."""
+    from crimac_unet_tpu_torch.data.fixtures import make_survey_dir
+    root = Path(tmp) / "train_memm"
+    if not root.is_dir():
+        t0 = time.perf_counter()
+        make_survey_dir(root, year=2017, n_echograms=3, H=700, W=1400,
+                        seed=41, n_schools=6)
+        make_survey_dir(root, year=2016, n_echograms=2, H=700, W=1200,
+                        seed=42, n_schools=6)
+        print(f"train fixture written in {time.perf_counter() - t0:.1f} s")
+    return root
+
+
+def recipe_config(root, **kw) -> dict:
+    """The reference recipe's settings (the JAX repo's
+    ``scripts/r3_tpu_session.py:63-78``): the flagship U-Net, batch 4, lr
+    0.005 halved every 1000 steps, 15000 iterations, validation every 2500
+    over 1000 batches; device pool auto, on the card; ``kw`` overrides."""
+    from crimac_unet_tpu_torch.config import parse_config_options
+    return parse_config_options(dict({
+        "frequencies": FREQS, "data_mode": "memm",
+        "path_to_echograms": str(root), "patch_size": [256, 256],
+        "loss_type": "CE", "batch_size": 4, "lr": 0.005,
+        "lr_reduction": 0.5, "momentum": 0.95, "iterations": 15000,
+        "test_iter": 1000, "log_step": 2500, "lr_step": 1000,
+        "num_workers": 2, "partition_train": "selected surveys",
+        "train_surveys": [2017], "validation_surveys": [2016],
+        "partition_predict": "all surveys", "evaluation_surveys": [],
+        "save_prediction_surveys": [], "eval_mode": "all",
+        "patch_overlap": 20, "random_seed": 10, "depth": 5,
+        "start_filts": 64, "train_dtype": "bfloat16",
+        "use_device_pool": "auto", "device": "cuda"}, **kw))
+
+
+class Scalars:
+    """A TensorBoard-style logger that keeps the scalars."""
+
+    def __init__(self):
+        self.rows = []
+
+    def add_scalar(self, tag, value, global_step):
+        self.rows.append((tag, float(value), int(global_step)))
+
+    def values(self, tag):
+        return [v for t, v, _ in self.rows if t == tag]
+
+
 def finish(res: dict, out=None) -> dict:
     """Print the result as one JSON line and write it to ``out``."""
     import json

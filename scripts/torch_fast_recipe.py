@@ -24,8 +24,8 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from scripts import torch_check_common as common  # noqa: E402
-from scripts.torch_r3_session import (ensure_train_fixture, log,  # noqa: E402
-                                      recipe_config, save, train_arm)
+from scripts.torch_r3_session import (log, recipe_config,  # noqa: E402
+                                      save, train_arm)
 
 
 def fast_config(memm, batch, lr, **kw) -> dict:
@@ -49,12 +49,30 @@ ARMS = {
 }
 
 
+PRESET_KEYS = ("batch_size", "lr", "lr_step", "lr_reduction", "momentum",
+               "iterations", "test_iter", "log_step", "patch_size",
+               "loss_type", "train_dtype", "random_seed")
+
+
+def preset_differences(memm) -> dict:
+    """``{key: (b16_sqrt arm, config_fast_train.yaml)}`` over the fast
+    preset's training keys where the two differ: empty when the preset
+    file holds the ``b16_sqrt`` arm's settings."""
+    from crimac_unet_tpu_torch.config import load_yaml_config
+    preset = load_yaml_config(Path(__file__).resolve().parent.parent
+                              / "crimac_unet_tpu_torch" / "configs"
+                              / "config_fast_train.yaml")
+    arm = ARMS["b16_sqrt"](memm)
+    return {k: (arm[k], preset[k]) for k in PRESET_KEYS
+            if arm[k] != preset[k]}
+
+
 def run_arm(work, out, arm, paths=None, cut=None, **kw) -> dict:
     """Train ``arm`` on the recipe fixture under ``work``; ``cut``
     overrides the scaled schedule (iterations, log_step, test_iter) after
     the scaling.  Saves ``fast_<arm>`` with the JAX script's keys and
     returns the whole summary."""
-    cfg = ARMS[arm](ensure_train_fixture(work), **kw)
+    cfg = ARMS[arm](common.train_fixture(work), **kw)
     cfg.update(cut or {})
     res = train_arm(cfg, Path(work) / f"ckpt_fast_{arm}", f"fast_{arm}",
                     paths)

@@ -26,8 +26,7 @@ from crimac_unet_tpu_torch.config import \
     META_CHANNELS_ALL as ALL_META  # noqa: E402
 from scripts import torch_check_common as common  # noqa: E402
 from scripts.torch_fast_recipe import fast_config  # noqa: E402
-from scripts.torch_r3_session import (ensure_train_fixture, log,  # noqa: E402
-                                      save, train_arm)
+from scripts.torch_r3_session import log, save, train_arm  # noqa: E402
 
 
 def meta_config(memm, late, **kw) -> dict:
@@ -44,7 +43,7 @@ def run(work, out, late, paths=None, cut=None, **kw) -> dict:
     Saves ``meta_<arm>`` with the JAX script's keys and returns the whole
     summary; raises when the pooled metadata path did not run."""
     arm = "late" if late else "early"
-    cfg = meta_config(ensure_train_fixture(work), late, **kw)
+    cfg = meta_config(common.train_fixture(work), late, **kw)
     cfg.update(cut or {})
     log(f"=== meta recipe ({arm} inject), batch {cfg['batch_size']}, pooled")
     res = train_arm(cfg, Path(work) / f"ckpt_meta_{arm}", f"meta_{arm}",

@@ -47,7 +47,7 @@ def train(tmp, mesh_devices, seed, tag, deterministic=True, rank=0):
     from crimac_unet_tpu_torch.pipeline.train import run_training
     cfg = cs.parallel_train_config(tmp, mesh_devices)
     cfg["random_seed"] = seed
-    log = cs._Scalars()
+    log = cs.Scalars()
     torch.backends.cudnn.deterministic = deterministic
     torch.backends.cudnn.benchmark = not deterministic
     t = time.perf_counter()

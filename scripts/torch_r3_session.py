@@ -8,7 +8,7 @@ results):
   ab_f32 / ab_bf16  the reference recipe (15000 steps of batch 4, six
                     validations, best-F1 checkpointing) at train_dtype
                     float32 / bfloat16 on the recipe fixture
-                    (``chip_smoke.train_fixture``) and seed
+                    (``torch_check_common.train_fixture``) and seed
   slab_bound        patch against slab prediction under the ``ab_f32``
                     checkpoint read from ``--out``
                     (``torch_u8_bound.run``: exact float32, patch uint8,
@@ -58,18 +58,12 @@ def save(out_path, key, value):
     log(f"saved {key}: {json.dumps(value, default=float)[:200]}")
 
 
-def ensure_train_fixture(work) -> Path:
-    """The recipe fixture under ``work`` (``chip_smoke.train_fixture``)."""
-    import chip_smoke as cs
-    return cs.train_fixture(Path(work))
-
-
 def recipe_config(memm, dtype, **kw) -> dict:
-    """The reference recipe at ``train_dtype`` ``dtype``
-    (``chip_smoke.recipe_config``); ``kw`` overrides (the device, smaller
-    models, cut schedules), ``train_dtype`` included."""
-    import chip_smoke as cs
-    return cs.recipe_config(memm, **dict({"train_dtype": dtype}, **kw))
+    """The reference recipe at ``train_dtype`` ``dtype``, in the JAX
+    script's call form (``torch_check_common.recipe_config``); ``kw``
+    overrides (the device, smaller models, cut schedules),
+    ``train_dtype`` included."""
+    return common.recipe_config(memm, **dict({"train_dtype": dtype}, **kw))
 
 
 def train_arm(cfg, ckpt_dir, name, paths=None) -> dict:
@@ -79,12 +73,11 @@ def train_arm(cfg, ckpt_dir, name, paths=None) -> dict:
     synchronize), the steps, the train and validation steps the config
     implies, whether every logged training loss is finite, whether the
     pooled metadata path ran (a metadata config) and the checkpoint."""
-    import chip_smoke as cs
     from crimac_unet_tpu_torch.data.meta_channels import get_in_channels
     from crimac_unet_tpu_torch.pipeline.train import run_training
     dev = common.device_of(cfg["device"])
     paths = paths if paths is not None else common.Paths()
-    logger = cs._Scalars()
+    logger = common.Scalars()
     with paths.path(name, device=dev):
         t0 = time.perf_counter()
         sp = run_training(cfg, str(ckpt_dir), logger=logger, progress=False)
@@ -109,7 +102,7 @@ def train_arm(cfg, ckpt_dir, name, paths=None) -> dict:
 def stage_ab(work, out, dtype, paths=None, **kw):
     """The reference recipe at ``dtype``; saves ``ab_<dtype>`` with the
     JAX stage's keys and returns the whole summary."""
-    cfg = recipe_config(ensure_train_fixture(work), dtype, **kw)
+    cfg = recipe_config(common.train_fixture(work), dtype, **kw)
     res = train_arm(cfg, Path(work) / f"ckpt_{dtype}", f"ab_{dtype}", paths)
     save(out, f"ab_{dtype}", {k: res[k] for k in
                               ("best_F1", "wall_min", "steps", "ckpt")})

@@ -2,7 +2,7 @@
 ``scripts/school_ap_trained.py``.
 
 With ``--iterations N`` it first trains the reference recipe (bf16) on
-the recipe fixture (``chip_smoke.train_fixture``: train year 2017,
+the recipe fixture (``torch_check_common.train_fixture``: train year 2017,
 held-out validation year 2016) through ``run_training``; ``--ckpt``
 skips training.  Then ``school_eval_survey`` (threshold 0.5, the other
 knobs at their defaults) scores the held-out 2016 survey, or with
@@ -47,11 +47,11 @@ def ensure_big_val_fixture(work, n_echograms=14) -> str:
 def train(work, iterations, device, model=None):
     """The reference recipe through ``run_training`` for ``iterations``
     steps; returns (checkpoint path, summary)."""
-    import chip_smoke as cs
     from crimac_unet_tpu_torch.pipeline.train import run_training
-    cfg = cs.recipe_config(cs.train_fixture(Path(work)), iterations=iterations,
-                           log_step=max(iterations // 6, 1),
-                           device=str(device), **(model or {}))
+    cfg = common.recipe_config(common.train_fixture(work),
+                               iterations=iterations,
+                               log_step=max(iterations // 6, 1),
+                               device=str(device), **(model or {}))
     ckpt_dir = Path(work) / "ckpt"
     t0 = time.perf_counter()
     sp = run_training(cfg, str(ckpt_dir), progress=False)
@@ -104,8 +104,7 @@ def main(argv=None):
     if args.big_val:
         val_dir = ensure_big_val_fixture(args.work)
     else:
-        import chip_smoke as cs
-        val_dir = cs.train_fixture(Path(args.work))
+        val_dir = common.train_fixture(args.work)
     res = run(ckpt, val_dir, dev, save_dir=args.work)
     res.update(summary, ckpt=str(ckpt))
     for name, cm in res["categories"].items():

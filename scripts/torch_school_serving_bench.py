@@ -9,7 +9,11 @@ fwd_batch 32).  Two arms: ``patch+bf16`` (the defaults) and ``serving``
 (``infer_mode: slab``, ``transfer_dtype: uint8``, ``static_grid: true``,
 the runner built with its alignment warning silenced as the JAX script
 builds it).  Per arm: one warm call, then the best of two timed calls as
-pings/s, and the detections per category.  Then each arm's store law
+pings/s, and the detections per category.  Each timed call is followed
+by a timed pass of the same runner's ``predict_reader`` alone (the same
+chunks brought to the host, no detector): the live wall less the best
+prediction wall is the detector's share, both read in one process.  Then
+each arm's store law
 (JAX ``tests/test_school_eval.py::test_detect_store_schools_matches_live``):
 the same runner writes the survey's prediction store
 (``save_survey_predictions_zarr``) and ``detect_store_schools`` reads it
@@ -56,8 +60,10 @@ def run(state_dict=None, survey=None, device="cuda", model=None, passes=2,
     live calls (``detect_<arm>``) and its store write
     (``detect_<arm>_store``); ``outputs``, where given, each arm's live
     detections."""
-    from crimac_unet_tpu_torch.pipeline.predict import \
-        save_survey_predictions_zarr
+    import numpy as np
+
+    from crimac_unet_tpu_torch.pipeline.predict import (
+        predict_reader, save_survey_predictions_zarr)
     from crimac_unet_tpu_torch.pipeline.school_eval import (
         detect_reader_schools, detect_store_schools)
     from scripts.torch_roofline import seeded_state_dict
@@ -72,7 +78,7 @@ def run(state_dict=None, survey=None, device="cuda", model=None, passes=2,
     for tag, extra in ARMS.items():
         runner = common.make_runner(sd, dict(cfg, **extra), dev)
         name = "detect_" + tag.split("+")[0]
-        walls = []
+        walls, pwalls = [], []
         with paths.path(name, runner):
             detect_reader_schools(runner, reader, preload_n_pings,
                                   prob_threshold)                  # warm
@@ -82,6 +88,12 @@ def run(state_dict=None, survey=None, device="cuda", model=None, passes=2,
                                              prob_threshold)
                 common.synchronize(dev)
                 walls.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                for _, _, pred, _ in predict_reader(runner, reader,
+                                                    preload_n_pings):
+                    np.asarray(pred)
+                common.synchronize(dev)
+                pwalls.append(time.perf_counter() - t0)
         with tempfile.TemporaryDirectory() as td:
             store = str(Path(td) / f"{reader.name}_pred.zarr")
             with paths.path(name + "_store", runner):
@@ -90,7 +102,11 @@ def run(state_dict=None, survey=None, device="cuda", model=None, passes=2,
             stored = detect_store_schools(store, reader, prob_threshold,
                                           chunk_pings=preload_n_pings)
         n = {CATEGORIES[ch]: len(v) for ch, v in dets.items()}
+        detector_s = min(walls) - min(pwalls)
         res[tag] = {"pings_per_sec": n_pings / min(walls), "walls_s": walls,
+                    "predict_pings_per_sec": n_pings / min(pwalls),
+                    "predict_walls_s": pwalls, "detector_s": detector_s,
+                    "detector_share": detector_s / min(walls),
                     "n_detections": n,
                     "store_equal": detection_keys(stored)
                     == detection_keys(dets)}
@@ -98,7 +114,9 @@ def run(state_dict=None, survey=None, device="cuda", model=None, passes=2,
             outputs[tag] = dets
         log(f"# live school detection [{tag}]: "
             f"{res[tag]['pings_per_sec']:.1f} pings/s ({sum(n.values())} "
-            f"detections {n}), store detections equal: "
+            f"detections {n}), prediction alone "
+            f"{res[tag]['predict_pings_per_sec']:.1f} pings/s, detector "
+            f"share {res[tag]['detector_share']:.3f}, store detections equal: "
             f"{res[tag]['store_equal']}")
     res.update(launches=paths.counts, device=common.card_name(dev))
     return res

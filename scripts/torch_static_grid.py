@@ -9,7 +9,9 @@ predicted end to end through ``run_save_predictions`` twice, with
 subprocess, so nothing a first call sets up (cuDNN's heuristic queries
 and plans, CUDA's lazily loaded modules, the allocator's pool, the
 kernel library's load) carries from one arm to the other.  The static
-arm runs first, so it pays every first call truly cold.  Per arm, at
+arm runs first, so it pays every first call truly cold.  The survey's
+seabed and label caches are written with the survey, before either arm
+(``ensure_fixture``).  Per arm, at
 full width (depth 5, start_filts 64, bf16, patch 256 / overlap 20,
 fwd_batch 32, seeded weights): the cold wall and pings/s, the chunks,
 the distinct ``(R, C)`` grids of ``_predict_patches`` and the distinct
@@ -21,9 +23,11 @@ functionally, so the count wraps ``F.conv2d`` / ``F.conv_transpose2d``
 in the arm's process (module hooks would not fire).  The arms' outputs:
 write masks identical and max |dprob| <= 4e-3 (another sub-batch size
 may take another cuDNN algorithm in bf16; on the CPU they are
-bit-identical).
+bit-identical).  ``--order dynamic,static`` runs the dynamic arm first,
+to tell what a first process pays from what an arm costs.
 
-    python scripts/torch_static_grid.py [--device cuda] [--work build/torch_checks]
+    python scripts/torch_static_grid.py [--device cuda] [--work build/torch_checks] \\
+        [--order static,dynamic]
     python scripts/torch_static_grid.py --arm 0|1 --fixture DIR --arm-out DIR
 
 Prints one JSON line (and writes it to ``--out``).
@@ -59,12 +63,17 @@ ARM_TIMEOUT_S = 900
 
 
 def ensure_fixture(work=common.WORK, echos=ECHOS) -> Path:
-    """The survey under ``work``, rebuilt when ``echos`` changed."""
+    """The survey under ``work``, rebuilt when ``echos`` changed, with
+    each echogram's seabed estimate and heave-reverted labels cached
+    beside it: the reader writes both at its first use (about 3.6 s of
+    host work for ``ECHOS``), which would otherwise land in the cold
+    wall of whichever arm reads the survey first."""
     from crimac_unet_tpu_torch.data.fixtures import (make_synthetic_echogram,
                                                      write_memmap_echogram)
+    from crimac_unet_tpu_torch.data.memmap_reader import get_echograms
     root = Path(work) / "static_grid_survey"
     ok = root / ".ok"
-    params = f"{echos} seed=5"
+    params = f"{echos} seed=5, seabed and labels cached"
     if ok.is_file() and ok.read_text() == params:
         return root
     shutil.rmtree(root, ignore_errors=True)
@@ -77,6 +86,10 @@ def ensure_fixture(work=common.WORK, echos=ECHOS) -> Path:
             H, W, rng, n_schools=6, seabed_frac=frac)
         write_memmap_echogram(str(root), name, data, labels, heave,
                               common.FREQS)
+    for reader in get_echograms(years=[2017], path_to_echograms=str(root),
+                                frequencies=common.FREQS, minimum_shape=0):
+        reader.get_seabed()
+        reader.label_memmap()
     ok.write_text(params)
     return root
 
@@ -118,6 +131,7 @@ def run_arm(static, fixture, out, device="cuda", model=None) -> dict:
             return readers
 
     pp_sigs, mo_sigs, convs = [], [], set()
+    n_in, patch = len(cfg["frequencies"]), tuple(cfg["patch_size"])
     real_pp, real_mo = runner._predict_patches, runner._mask_output
 
     def spy_pp(data_slab, y0p, x0p, N, border_ext, R, C, *rest):
@@ -158,7 +172,12 @@ def run_arm(static, fixture, out, device="cuda", model=None) -> dict:
                 n_chunks=len(pp_sigs), forwards=runner.forwards,
                 distinct_predict_sigs=sorted({(r, c) for r, c, _ in pp_sigs}),
                 distinct_mask_sigs=sorted({s[:3] for s in mo_sigs}),
-                conv_shapes=len(convs), launches=launches,
+                conv_shapes=len(convs),
+                # forward sub-batch sizes: the first conv's batch dim
+                sub_batches=sorted({x[0] for n, x, w, _ in convs
+                                    if n == "conv2d" and x[1] == n_in
+                                    and x[2:] == patch}),
+                launches=launches,
                 device=common.card_name(dev))
 
 
@@ -178,14 +197,18 @@ def compare(dir_dynamic, dir_static) -> dict:
                 max_abs_prob_diff=worst, bit_identical=identical)
 
 
+ORDERS = {"static,dynamic": (1, 0), "dynamic,static": (0, 1)}
+
+
 def run(device="cuda", work=common.WORK, model=None, echos=ECHOS,
-        timeout=ARM_TIMEOUT_S) -> dict:
-    """Both arms, each in a fresh subprocess, static first; raises when
-    the write masks differ or |dprob| exceeds ``MAX_DPROB``."""
+        timeout=ARM_TIMEOUT_S, order="static,dynamic") -> dict:
+    """Both arms, each in a fresh subprocess, in ``order`` (static first
+    by default, as the JAX script runs them); raises when the write masks
+    differ or |dprob| exceeds ``MAX_DPROB``."""
     dev = str(common.device_of(device))
     fixture = ensure_fixture(work, echos)
     results = {}
-    for arm in (1, 0):
+    for arm in ORDERS[order]:
         out = Path(work) / f"static_grid_out_{arm}"
         shutil.rmtree(out, ignore_errors=True)
         out.mkdir(parents=True)
@@ -202,7 +225,7 @@ def run(device="cuda", work=common.WORK, model=None, echos=ECHOS,
         line = [ln for ln in proc.stdout.splitlines()
                 if ln.startswith("ARM_JSON ")][-1]
         results[arm] = json.loads(line[len("ARM_JSON "):])
-    res = dict(dynamic=results[0], static=results[1],
+    res = dict(order=order, dynamic=results[0], static=results[1],
                **compare(Path(work) / "static_grid_out_0",
                          Path(work) / "static_grid_out_1"))
     if not res["write_masks_identical"] or \
@@ -218,6 +241,8 @@ def main(argv=None):
                     help="torch device (default cuda; raises without a card)")
     ap.add_argument("--work", default=str(common.WORK))
     ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--order", default="static,dynamic", choices=ORDERS,
+                    help="the arms' order (default static first, as JAX)")
     ap.add_argument("--arm", type=int, choices=(0, 1),
                     help="run one arm here (static 1, dynamic 0)")
     ap.add_argument("--fixture", help="the arm's survey directory")
@@ -230,7 +255,8 @@ def main(argv=None):
                       json.loads(a.model))
         print("ARM_JSON " + json.dumps(res), flush=True)
         return
-    common.finish(run(a.device, a.work, json.loads(a.model)), a.out)
+    common.finish(run(a.device, a.work, json.loads(a.model),
+                      order=a.order), a.out)
 
 
 if __name__ == "__main__":

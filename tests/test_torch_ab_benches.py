@@ -216,6 +216,18 @@ def test_school_serving_matches_jax(detections, arm):
     assert port["launches"][name + "_store"]["forwards"] > 0
 
 
+@pytest.mark.parametrize("arm", list(torch_school_serving_bench.ARMS))
+def test_school_serving_detector_share(detections, arm):
+    """Each live call is paired with a prediction pass alone of the same
+    runner in the same process; the detector's share is the live wall
+    less the best prediction wall, over the live wall."""
+    r = detections[0][arm]
+    assert len(r["predict_walls_s"]) == len(r["walls_s"]) == 1
+    assert r["detector_s"] == min(r["walls_s"]) - min(r["predict_walls_s"])
+    assert r["detector_share"] == r["detector_s"] / min(r["walls_s"])
+    assert r["predict_pings_per_sec"] > 0
+
+
 def test_school_serving_store_law_catches_a_changed_store(weights, surveys,
                                                           monkeypatch):
     """The store law compares what it should: a detection dropped from
@@ -371,6 +383,17 @@ def test_meta_config_matches_jax(late, tmp_path):
     assert _differing(port, _parsed_jax(jcfg)) <= PORT_ONLY_KEYS
 
 
+def test_fast_preset_is_the_b16_sqrt_arm(tmp_path, monkeypatch):
+    """The port's ``config_fast_train.yaml`` holds the settings of the
+    fast recipe's ``b16_sqrt`` arm, and a changed arm shows."""
+    assert torch_fast_recipe.preset_differences(str(tmp_path)) == {}
+    arms = dict(torch_fast_recipe.ARMS, b16_sqrt=lambda memm, **kw:
+                torch_fast_recipe.fast_config(memm, 16, 0.02, **kw))
+    monkeypatch.setattr(torch_fast_recipe, "ARMS", arms)
+    assert torch_fast_recipe.preset_differences(str(tmp_path)) == {
+        "lr": (0.02, 0.01)}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_r3_config_matches_jax(dtype, tmp_path):
     (r3,) = _jax_scripts("r3_tpu_session")
@@ -443,16 +466,38 @@ def static_grid(tmp_path_factory):
 
 
 def test_static_grid_arms(static_grid):
-    _, res = static_grid
+    work, res = static_grid
+    # the seabed caches come with the survey, not with the first arm
+    dirs = [d for d in (Path(work) / "static_grid_survey").iterdir()
+            if d.is_dir()]
+    assert len(dirs) == 3 and all((d / "seabed.npy").is_file()
+                                  for d in dirs)
     assert len(res["static"]["distinct_predict_sigs"]) == 1
     assert len(res["dynamic"]["distinct_predict_sigs"]) > 1
     assert len(res["static"]["distinct_mask_sigs"]) == 1
     assert res["n_stores"] == 3
     assert res["bit_identical"] and res["write_masks_identical"]
     assert res["max_abs_prob_diff"] == 0.0
+    assert res["order"] == "static,dynamic"
     for arm in ("static", "dynamic"):
         assert res[arm]["n_chunks"] > 0 and res[arm]["conv_shapes"] > 0
         assert res[arm]["forwards"] > 0 and res[arm]["cold_wall_s"] > 0
+        assert res[arm]["sub_batches"] and all(
+            0 < b <= SG_MODEL["fwd_batch"] for b in res[arm]["sub_batches"])
+
+
+def test_static_grid_dynamic_first(static_grid):
+    """``order="dynamic,static"``: the same grids, sub-batches and stores
+    as the default order."""
+    work, first = static_grid
+    res = torch_static_grid.run("cpu", Path(work) / "dynamic_first",
+                                SG_MODEL, SG_ECHOS, order="dynamic,static")
+    assert res["order"] == "dynamic,static"
+    for arm in ("static", "dynamic"):
+        for key in ("distinct_predict_sigs", "distinct_mask_sigs",
+                    "sub_batches", "n_chunks", "forwards", "conv_shapes"):
+            assert res[arm][key] == first[arm][key], (arm, key)
+    assert res["bit_identical"] and res["n_stores"] == 3
 
 
 def test_static_grid_signatures_match_jax(static_grid, tmp_path):
