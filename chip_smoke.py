@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases 1,6,19 --trained-ckpt best.msgpack
     python3 chip_smoke.py --phases 1,6,20     # where the time goes
     python3 chip_smoke.py --phases 1,6,12,21  # A/B benches, recipe arms
+    python3 chip_smoke.py --phases 1,22       # the probes, P1-P3
 
 Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit; imports
 nothing of JAX or of the JAX package.  Phases, in order; any failure
@@ -250,16 +251,33 @@ raises and the script exits nonzero without its result line:
     validation step; the first call of every kernel on each path held
     bit for bit to its plain version, and the kernels held equal to those
     the path launched; launches ``p21_<path>``;
+22. the JAX repo's last probes through ``scripts/torch_*.py`` at full
+    width: ``torch_pool_probe`` (P1-P3, the CUDA kernels of
+    ``csrc/pool_probe.cu`` that replace ``scripts/pallas_pool_probe.py``'s
+    Pallas kernels, held bit for bit with NaN and +-Inf seeded to
+    ``F.max_pool2d`` and their plain versions at (32, 256, 256, 64) and
+    (8, 256, 256, 64), then timed beside ``F.max_pool2d`` and K2 against
+    the byte bound), ``torch_pool_v2`` (K2 alone; the folded serving
+    forward at batch 32 with K3 ON and with relu + ``F.max_pool2d`` OFF:
+    ms, MFU, the logits within ``POOL_ONOFF_DLOGIT``), ``torch_l0_probe``
+    (level-0 pool, conv and transposed-conv formulations at batch 32 and
+    8, each held to production first), ``torch_dldw_probe`` (cuDNN's
+    weight gradient against nine tap GEMMs at batch 8), ``torch_int8_probe``
+    (bf16 conv against im2col + ``torch._int_mm``, exact against an int64
+    reference) and ``torch_h2d_probe`` (the port's ``_to_device`` against
+    pageable and pre-pinned copies, and during a matmul chain); launches
+    ``p22_<path>``;
 
 and then one JSON line naming every kernel with its phase-2 numbers
-(slab geometry included), its launches on the main path that runs it
-(K1-K3 phase 4, K4 phase 5) and its launches on every path
+(slab geometry included) and P1-P3 with their phase-22 numbers, its
+launches on the main path that runs it (K1-K3 phase 4, K4 phase 5, P1-P3
+the pool probe's timing run) and its launches on every path
 (``launches_by_path``; ``tr``, ``tz``, ``tme`` and ``tml`` are the
 training runs of phases 12-14, ``ex``, ``exu``, ``es`` and ``em`` the
 patch, unfolded, slab and metadata artifacts of phase 15, ``ob``, ``oe``,
 ``oz``, ``oz512``, ``oxp`` and ``oxs`` the onboarded paths of phase 17,
-``x_*`` the paths of phase 18, ``p19_*``, ``p20_*`` and ``p21_*``
-those of phases 19, 20 and 21),
+``x_*`` the paths of phase 18, ``p19_*`` ... ``p22_*`` those of phases
+19-22; P1-P3 list the ``p22_*`` paths),
 then the last
 line ``{"ok": true,
 "device": {...}}``.  ``--recipe baseline|fast|meta-early|meta-late|zarr``
@@ -2548,7 +2566,7 @@ def phase_export(torch, cuda_lib, tmp, ech_dir, reader, zreader, cfg, card):
         return out, dict(cuda_lib.launches)
 
     def expect(counts, label, **want):
-        full = dict.fromkeys(KERNELS, 0)
+        full = dict.fromkeys(cuda_lib.launches, 0)
         full.update(want)
         check(counts == full, f"{label}: launches {counts}, not {full}")
 
@@ -4556,6 +4574,134 @@ def phase_ab(torch, tmp, card, sv, ckpt, reader, cfg):
             for k, c in paths.counts.items()}, rates
 
 
+# -------------------------------------------------------------- phase 22
+# The JAX repo's last probes (scripts/torch_pool_probe.py, torch_pool_v2.py,
+# torch_l0_probe.py, torch_dldw_probe.py, torch_int8_probe.py,
+# torch_h2d_probe.py) at full width, P1-P3 (csrc/pool_probe.cu) among them.
+# Each bound was written before the first card run of phase 22 (PERF.md
+# §6); the probes' own checks (bit-equal pools, convs within 0.05, dW within
+# REL_TOL, int8 exact) raise inside the tools and are read back here.
+POOL_ONOFF_DLOGIT = 1e-2      # ON (K3) vs OFF (F.max_pool2d) logits: max |d|
+                              # <= this x max |logit| (the pool is exact; a
+                              # conv on another layout may round otherwise)
+PROBE_SHAPES = (32, 8)        # P1-P3 held at (B, 256, 256, 64) for these B
+
+
+def _probe_kernel_rows(pp, held):
+    """The kernels-line entries of P1-P3 (``ops/pool_probe.py``
+    ``VARIANTS``) from the pool probe's run ``pp`` and the bit-equality
+    runs ``held`` ({B: checks})."""
+    from crimac_unet_tpu_torch.ops.pool_probe import VARIANTS
+    rows = {r["name"]: r for r in pp["rows"]}
+    out = {}
+    for name, (_, _, replaces) in VARIANTS.items():
+        out[name] = dict(
+            name=name, route="cuda",
+            source="crimac_unet_tpu_torch/csrc/pool_probe.cu",
+            replaces=replaces, launches=pp["timed_launches"][name],
+            max_abs_err=max(h[name]["max_abs_err"] for h in held.values()),
+            ms=rows[name]["ms"], plain_ms=rows[f"{name} plain"]["ms"],
+            bound_ms=pp["bound_ms"], bound_by="bytes",
+            library_ms=rows["F.max_pool2d"]["ms"],
+            k2_ms=rows["K2 maxpool2x2"]["ms"],
+            shape=[pp["batch"], pp["size"], pp["size"], pp["chan"]])
+    return out
+
+
+def phase_probes(torch, cuda_lib, card):
+    """The probes (phase 22): each tool's ``run()`` at full width, its
+    table printed, then every check beside its bound.  Returns (launches
+    by path, rates, the P1-P3 entries of the kernels line)."""
+    sys.path.insert(0, str(ROOT))
+    from scripts import (torch_dldw_probe, torch_h2d_probe, torch_int8_probe,
+                         torch_l0_probe, torch_pool_probe, torch_pool_v2,
+                         torch_timing_common as tc)
+    t_phase = time.perf_counter()
+    by_path, rates = {}, {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        by_path[f"p22_{name}"] = dict(cuda_lib.launches)
+        return out
+
+    print(f"phase 22: the probes [{card}]")
+    pp = counted("pool_probe", lambda: torch_pool_probe.run("cuda"))
+    held = {pp["batch"]: pp["checks"]}
+    for b in PROBE_SHAPES:
+        if b not in held:
+            x = torch.randn((b, 256, 256, 64), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(
+                                SEED + b)).mul_(.1).to(torch.bfloat16)
+            held[b] = counted(f"pool_probe_b{b}", lambda x=x:
+                              torch_pool_probe.probe_kernels_equal(x))
+    pv = counted("pool_v2", lambda: torch_pool_v2.run("cuda"))
+    l0 = counted("l0_probe", lambda: torch_l0_probe.run("cuda"))
+    dw = counted("dldw_probe", lambda: torch_dldw_probe.run("cuda"))
+    i8 = counted("int8_probe", lambda: torch_int8_probe.run("cuda"))
+    h2d = counted("h2d_probe", lambda: torch_h2d_probe.run("cuda"))
+
+    print(f"phase 22 checks [{card}]:")
+    for b, checks in sorted(held.items()):
+        for name, r in checks.items():
+            _bound(f"{name} at ({b}, 256, 256, 64) vs F.max_pool2d and its "
+                   f"plain version, NaN and +-Inf seeded (max |d|)",
+                   r["max_abs_err"], r["equal"], "bit-equal")
+    st = pv["standalone"]
+    _bound("pool v2 stage 1: K2 vs F.max_pool2d", st["k2_equal"],
+           st["k2_equal"], True)
+    fw = pv["forward"]
+    lim = POOL_ONOFF_DLOGIT * fw["max_abs_logit"]
+    _bound("pool v2 stage 2: logits max |d| ON vs OFF", fw["max_abs_dlogit"],
+           fw["logits_finite"] and fw["max_abs_dlogit"] <= lim,
+           f"{POOL_ONOFF_DLOGIT} x max |logit| = {lim:.4g}")
+    _bound("pool v2 stage 2: K3 a forward ON, OFF",
+           (fw["on"]["k3_launches"], fw["off"]["k3_launches"]),
+           (fw["on"]["k3_launches"], fw["off"]["k3_launches"]) == (1, 0),
+           (1, 0))
+    for b in l0["batches"]:
+        for name, r in b["checks"].items():
+            _bound(f"level-0 batch {b['batch']}: {name} vs production "
+                   f"(max |d|)", r["max_abs_err"], r["ok"], r["tol"])
+    for r in dw["rows"]:
+        _bound(f"dL/dW {r['layer']}: taps vs default rel |d|",
+               f"{r['rel']:.3e}", r["rel_ok"], dw["rel_tol"])
+    for r in i8["rows"]:
+        _bound(f"int8 ({r['batch']}, {r['H']}, {r['W']}, {r['cin']} -> "
+               f"{r['cout']}): im2col + _int_mm vs the int64 reference",
+               r["int8_exact"], r["int8_exact"], True)
+    keys = h2d["chunk"]["default"]["keys"]
+    _bound("h2d chunk set keys", sorted(keys),
+           sorted(keys) == ["data_slab", "lab_bits", "sb_row"],
+           ["data_slab", "lab_bits", "sb_row"])
+
+    probes = _probe_kernel_rows(pp, held)
+    for name, c in by_path.items():
+        if name.startswith("p22_pool_probe"):
+            _quiet_launches(c, tuple(probes) + (
+                ("maxpool2x2",) if name == "p22_pool_probe" else ()), name)
+        elif name == "p22_pool_v2":
+            _quiet_launches(c, ("maxpool2x2", "relu_pool_skip"), name)
+        elif name == "p22_l0_probe":
+            _quiet_launches(c, ("maxpool2x2", "relu_pool_skip"), name)
+        else:
+            _quiet_launches(c, (), name)
+    for name, r in probes.items():
+        check(r["launches"] > 0, f"{name} was not launched by phase 22's "
+                                 f"timing run: {pp['timed_launches']}")
+        r["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+    print("phase 22 launches: " + ", ".join(
+        f"{k} {v}" for k, v in by_path.items()))
+    rates["forward ms a call of 32, pool kernel ON"] = fw["on"]["ms"]
+    rates["forward ms a call of 32, pool kernel OFF"] = fw["off"]["ms"]
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    check(tc.HBM_BYTES_PER_S == HBM_BYTES_PER_S,
+          f"the tools' HBM rate {tc.HBM_BYTES_PER_S} != {HBM_BYTES_PER_S}")
+    return by_path, rates, probes
+
+
 RECIPES = ("baseline", "fast", "meta-early", "meta-late", "zarr")
 
 
@@ -4614,8 +4760,8 @@ def main(argv=None) -> int:
         parallel_worker(int(argv[1]), int(argv[2]), argv[3])
         return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(1, 22))),
-                    help="comma-separated subset of phases 1-21 (11 and 18 "
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 23))),
+                    help="comma-separated subset of phases 1-22 (11 and 18 "
                          "need 4 and 6, 17 needs 4, 19 and 21 need 6 and 12, "
                          "20 needs 6)")
     ap.add_argument("--recipe", choices=RECIPES,
@@ -4663,6 +4809,7 @@ def main(argv=None) -> int:
 
     card = phase_card(torch, cuda_lib)
     kernels, launches, by_path, rates = {}, {}, {}, {}
+    probe_rows = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         ech_dir, reader, cfg = main_setup(torch, tmp)
@@ -4756,17 +4903,25 @@ def main(argv=None) -> int:
                                 reader, cfg)
             by_path.update(paths)
             rates.update(r)
+        if 22 in phases:
+            paths, r, probe_rows = phase_probes(torch, cuda_lib, card)
+            by_path.update(paths)
+            rates.update(r)
         if args.recipe:
             run_recipe(torch, tmp, args.recipe, args.recipe_dtype, card)
+    rows = []
     if phases >= {2, 4, 5}:
         for name in KERNELS:
             check(launches.get(name, 0) > 0,
                   f"{name} was not launched on the main path")
-        print(json.dumps({"kernels": [
-            dict(name=name, route="cuda", **KERNELS[name],
-                 launches=launches[name], **kernels[name],
-                 launches_by_path={p: c[name] for p, c in by_path.items()})
-            for name in KERNELS]}))
+        rows += [dict(name=name, route="cuda", **KERNELS[name],
+                      launches=launches[name], **kernels[name],
+                      launches_by_path={p: c.get(name, 0)
+                                        for p, c in by_path.items()})
+                 for name in KERNELS]
+    rows += list(probe_rows.values())
+    if rows:
+        print(json.dumps({"kernels": rows}))
         print("main paths: " + ", ".join(
             f"{k} {v:.1f}" + ("" if "/s" in k or " ms " in k else " pings/s")
             for k, v in rates.items()) + f" [{card}]")

@@ -45,7 +45,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
 launches = {"gather_db": 0, "maxpool2x2": 0, "relu_pool_skip": 0,
-            "binary_closing": 0}
+            "binary_closing": 0, "pool_probe_nhwc": 0,
+            "pool_probe_lane128": 0, "pool_probe_packed": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -142,8 +143,13 @@ def lib() -> ctypes.CDLL:
             L.crimac_relu_pool_skip.argtypes = [P, P, P, I, I, I, I, I, I,
                                                 P]
             L.crimac_binary_closing.argtypes = [P, P, P, I, I, I, P]
+            L.crimac_pool_probe_nhwc.argtypes = [P, P, I, I, I, I, P]
+            L.crimac_pool_probe_lane128.argtypes = [P, P, I, I, I, P]
+            L.crimac_pool_probe_packed.argtypes = [P, P, I, I, I, I, P]
             for fn in (L.crimac_gather_db, L.crimac_maxpool2x2,
-                       L.crimac_relu_pool_skip, L.crimac_binary_closing):
+                       L.crimac_relu_pool_skip, L.crimac_binary_closing,
+                       L.crimac_pool_probe_nhwc, L.crimac_pool_probe_lane128,
+                       L.crimac_pool_probe_packed):
                 fn.restype = I
             L.crimac_error_string.argtypes = [I]
             L.crimac_error_string.restype = ctypes.c_char_p

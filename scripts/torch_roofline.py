@@ -242,6 +242,17 @@ def _equal_nan(got, want) -> bool:
                             torch.nan_to_num(want.float(), nan=0.0)))
 
 
+def with_nonfinite(x):
+    """A copy of ``x`` with NaN, +Inf and -Inf written at three strides."""
+    seeded = x.clone()
+    flat = seeded.view(-1)
+    n = flat.numel()
+    flat[::max(n // 97, 1)] = float("nan")
+    flat[3::max(n // 89, 1)] = float("inf")
+    flat[5::max(n // 83, 1)] = float("-inf")
+    return seeded
+
+
 def pool_kernels_equal(x_nhwc) -> dict:
     """K2 and K3 against their plain versions (``ops/pool.py``) on ``x``
     and on a copy with NaN and +-Inf written in: bit for bit, NaN
@@ -250,14 +261,8 @@ def pool_kernels_equal(x_nhwc) -> dict:
                                                 maxpool2x2_reference,
                                                 relu_pool_skip,
                                                 relu_pool_skip_reference)
-    seeded = x_nhwc.clone()
-    flat = seeded.view(-1)
-    n = flat.numel()
-    flat[::max(n // 97, 1)] = float("nan")
-    flat[3::max(n // 89, 1)] = float("inf")
-    flat[5::max(n // 83, 1)] = float("-inf")
     k2 = k3 = True
-    for x in (x_nhwc, seeded):
+    for x in (x_nhwc, with_nonfinite(x_nhwc)):
         k2 &= _equal_nan(maxpool2x2(x), maxpool2x2_reference(x))
         for got, want in zip(relu_pool_skip(x), relu_pool_skip_reference(x)):
             k3 &= _equal_nan(got, want)

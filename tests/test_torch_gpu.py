@@ -150,6 +150,51 @@ def test_pool_kernels_bit_equal_plain(cuda, dtype, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", ["pool_probe_nhwc", "pool_probe_lane128",
+                                  "pool_probe_packed"])
+@pytest.mark.parametrize("shape", [(2, 16, 32, 64), (1, 2, 2, 64),
+                                   (3, 6, 10, 64), (4, 256, 256, 64),
+                                   (2, 8, 16, 128), (2, 4, 6, 6)])
+def test_pool_probe_kernels_bit_equal_plain(cuda, name, shape):
+    """P1-P3 against their plain versions and F.max_pool2d (bfloat16, NaN,
+    +-Inf and -0 written in); P2 takes C = 64 only, P1 a multiple of 8."""
+    from crimac_unet_tpu_torch.ops.pool_probe import VARIANTS
+    kernel, plain, _ = VARIANTS[name]
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(shape, generator=g)
+    idx = torch.randperm(x.numel(), generator=g)[:5]
+    x.view(-1)[idx] = torch.tensor([float("nan"), float("nan"),
+                                    float("inf"), float("-inf"), -0.0])
+    x = x.to(cuda, torch.bfloat16)
+    C = shape[3]
+    if (name == "pool_probe_lane128" and C != 64) or \
+            (name == "pool_probe_nhwc" and C % 8):
+        with pytest.raises(ValueError):
+            kernel(x)
+        return
+    before = cuda_lib.launches[name]
+    got = kernel(x)
+    _assert_equal_nan(got, plain(x))
+    _assert_equal_nan(got, maxpool2x2_reference(x))
+    torch.cuda.synchronize()
+    assert cuda_lib.launches[name] == before + 1
+
+
+@pytest.mark.gpu
+def test_pool_probe_kernels_raise_on_bad_input(cuda):
+    from crimac_unet_tpu_torch.ops.pool_probe import (pool_nhwc,
+                                                      pool_packed)
+    with pytest.raises(ValueError, match="shared memory"):
+        pool_nhwc(torch.zeros(1, 2, 1024, 64, device=cuda,
+                              dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="even C"):
+        pool_packed(torch.zeros(1, 2, 2, 5, device=cuda,
+                                dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="bfloat16"):
+        pool_packed(torch.zeros(1, 2, 2, 4, device=cuda))
+
+
+@pytest.mark.gpu
 def test_kernels_raise_on_bad_input(cuda):
     with pytest.raises(ValueError, match="even"):
         maxpool2x2(torch.zeros(1, 5, 4, 8, device=cuda))
@@ -447,9 +492,9 @@ def test_crimac_ops_on_card_match_plain(cuda):
     clip[:, :5] = False
     assert torch.equal(ops.binary_closing(mask, clip),
                        binary_closing_reference(mask, clip))
-    assert {k: cuda_lib.launches[k] - before[k] for k in before} == {
-        "gather_db": 2, "maxpool2x2": 1, "relu_pool_skip": 1,
-        "binary_closing": 1}
+    assert {k: cuda_lib.launches[k] - before[k] for k in before} == dict(
+        dict.fromkeys(before, 0), gather_db=2, maxpool2x2=1,
+        relu_pool_skip=1, binary_closing=1)
 
 
 @pytest.mark.gpu
