@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases 1,6,20     # where the time goes
     python3 chip_smoke.py --phases 1,6,12,21  # A/B benches, recipe arms
     python3 chip_smoke.py --phases 1,22       # the probes, P1-P3
+    python3 chip_smoke.py --phases 1,6,23     # the production image's files
 
 Needs one NVIDIA GPU (Hopper, sm_90a) and the CUDA toolkit; imports
 nothing of JAX or of the JAX package.  Phases, in order; any failure
@@ -202,7 +203,11 @@ raises and the script exits nonzero without its result line:
     (patch, slab and uint8 evaluation streamed over a ``--soak-pings``
     survey, default 20 000, built by a child process while the other
     checks run, and over phase 6's 4000-ping survey as the reference of
-    its host RSS delta and peak device memory) and
+    its host RSS delta and peak device memory; slab mode also over the
+    soak survey with ``static_grid: true``, a control arm of one grid
+    shape; for each run, chunk by chunk, the RSS, the count of distinct
+    U-Net input shapes so far, the pinned host cache and glibc's malloc
+    counters, printed and not bounded) and
     ``torch_school_eval_soak`` (the streaming detector over
     ``--soak-pings``); every reading printed beside its bound
     (``U8_DF1`` ... ``SOAK_DEVICE_RATIO``); the first K1 and K3 call of
@@ -267,6 +272,17 @@ raises and the script exits nonzero without its result line:
     reference) and ``torch_h2d_probe`` (the port's ``_to_device`` against
     pageable and pre-pinned copies, and during a matmul chain); launches
     ``p22_<path>``;
+23. the production image's file set without docker (needs 6):
+    ``crimac_unet_tpu_torch/`` copied alone into a temporary ``/app``,
+    ``Dockerfile.torch``'s kernel build step run there (and its codec
+    step where the host has libblosc), then its command, ``python -m
+    crimac_unet_tpu_torch.pipeline.dockerscript``, in a subprocess with
+    that directory alone on ``PYTHONPATH``, over phase 6's survey and
+    weights through MODELWEIGHTS / SURVEY_PATH / CONFIG_PATH / OUTPUT_DIR
+    / PRED_FILE: exit 0, the prebuilt library loaded and not rebuilt,
+    the launches it prints equal to phase 6's docker run (K1 = K3 =
+    forwards), its store bit-equal to phase 6's docker store; launches
+    ``image``;
 
 and then one JSON line naming every kernel with its phase-2 numbers
 (slab geometry included) and P1-P3 with their phase-22 numbers, its
@@ -277,7 +293,7 @@ training runs of phases 12-14, ``ex``, ``exu``, ``es`` and ``em`` the
 patch, unfolded, slab and metadata artifacts of phase 15, ``ob``, ``oe``,
 ``oz``, ``oz512``, ``oxp`` and ``oxs`` the onboarded paths of phase 17,
 ``x_*`` the paths of phase 18, ``p19_*`` ... ``p22_*`` those of phases
-19-22; P1-P3 list the ``p22_*`` paths),
+19-22, ``image`` phase 23's; P1-P3 list the ``p22_*`` paths),
 then the last
 line ``{"ok": true,
 "device": {...}}``.  ``--recipe baseline|fast|meta-early|meta-late|zarr``
@@ -4074,20 +4090,35 @@ def _trained_checks(torch, card, work, sv, ckpt, soak_pings, child):
     print(f"soak survey waited for {time.perf_counter() - t:.1f} s")
     for mode in ("patch", "slab", "eval"):
         soak = {}
-        for label, survey in (("ref", sv), ("soak", big)):
+        arms = [("ref", sv, False), ("soak", big, False)]
+        if mode == "slab":
+            # the control arm: the same survey on one grid shape
+            arms.append(("control", big, True))
+        for label, survey, static in arms:
             soak[label] = r = torch_soak50k.run(
                 mode, sd, survey, "cuda", out=work / f"pred_{mode}_{label}"
-                                              ".zarr", paths=paths)
+                                              ".zarr", paths=paths,
+                static_grid=static)
             n = r["n_pings"]
-            key = f"soak_{mode}" + ("_uint8" if mode == "eval" else "")
+            key = f"soak_{mode}" + ("_uint8" if mode == "eval" else "") \
+                + ("_static" if static else "")
             paths.counts[f"{key}_{n}"] = paths.counts.pop(key)
-            print(f"soak {mode} {n} pings: {r['wall_s']:.3f} s = "
+            print(f"soak {mode} {n} pings{' static grid' if static else ''}"
+                  f": {r['wall_s']:.3f} s = "
                   f"{r['pings_per_sec']:.1f} pings/s, RSS delta "
                   f"{r['rss_delta_bytes'] * mb:.1f} MiB (before "
                   f"{r['rss_before_bytes'] * mb:.1f} MiB), peak device "
                   f"{r['peak_device_bytes'] * mb:.1f} MiB, codec "
                   f"{r['codec_backend']}, survey compressor "
                   f"{r['survey_compressor']}; timers {r['timers']} [{card}]")
+            # where the host memory sits, chunk by chunk (F16): RSS,
+            # distinct U-Net input shapes so far, the pinned host cache,
+            # glibc's malloc counters (MiB)
+            print(f"  {torch_soak50k.scan_line(r)}; "
+                  f"{len(r['forward_shapes'])} forward shapes "
+                  f"{r['forward_shapes']}; per chunk:")
+            print("\n".join(torch_soak50k.chunk_lines(
+                r, max(1, len(r["chunks"]) // 25))))
             if mode == "eval":
                 _bound(f"soak eval {n} pings scored px", r["n_scored"],
                        r["n_scored"] > 0, "> 0")
@@ -4702,6 +4733,141 @@ def phase_probes(torch, cuda_lib, card):
     return by_path, rates, probes
 
 
+# -------------------------------------------------------------- phase 23
+# The production image (Dockerfile.torch) without docker: its file set
+# (the port alone), its build steps, its command.
+IMAGE_TIMEOUT_S = 900         # the build step and the docker entry, each
+
+
+def dockerfile_steps(path=None) -> list:
+    """The ``RUN python -c "..."`` steps of ``Dockerfile.torch`` (line
+    continuations joined), each as its Python source, in file order."""
+    import shlex
+    text = Path(path or ROOT / "Dockerfile.torch").read_text()
+    steps = []
+    for line in text.replace("\\\n", " ").splitlines():
+        if not line.startswith("RUN "):
+            continue
+        argv = shlex.split(line[4:])
+        if argv[:2] == ["python", "-c"] and len(argv) == 3:
+            steps.append(argv[2])
+    return steps
+
+
+def _image_env(app, **extra):
+    """The environment of a process of the image's file set: this one's,
+    with ``app`` alone on ``PYTHONPATH`` and the docker entry's variables
+    unset but for ``extra``."""
+    import os
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "PYTHONPATH", "MODEL", "SURVEY", "CONFIG", "ZARRFILE",
+        "MODELWEIGHTS", "SURVEY_PATH", "CONFIG_PATH", "OUTPUT_DIR",
+        "PRED_FILE")}
+    env.update(PYTHONPATH=str(app), **extra)
+    return env
+
+
+def _kernel_build_files(app):
+    d = app / ".kernel_build"
+    return {p.name: p.stat().st_mtime_ns for p in sorted(d.iterdir())} \
+        if d.is_dir() else {}
+
+
+def phase_image(tmp, sv, card, docker_counts):
+    """Phase 23: ``crimac_unet_tpu_torch/`` copied alone into an
+    ``/app``-like directory, ``Dockerfile.torch``'s kernel build step run
+    there, then its command, ``python -m
+    crimac_unet_tpu_torch.pipeline.dockerscript``, as a subprocess over
+    phase 6's survey and weights through the MODELWEIGHTS / SURVEY_PATH /
+    CONFIG_PATH / OUTPUT_DIR / PRED_FILE contract: it exits 0, loads the
+    prebuilt library (no build, the build directory unchanged), writes a
+    store bit-equal to phase 6's docker store and launches K1 and K3 as
+    phase 6's docker run did."""
+    import ctypes.util
+    import re
+    from crimac_unet_tpu_torch.data.zarrlite import ZGroup
+    t_phase = time.perf_counter()
+    app = tmp / "app"
+    shutil.copytree(ROOT / "crimac_unet_tpu_torch",
+                    app / "crimac_unet_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    check(sorted(p.name for p in app.iterdir()) == ["crimac_unet_tpu_torch"],
+          f"image file set {sorted(app.iterdir())}")
+    steps = dockerfile_steps()
+    kernel_steps = [c for c in steps if "cuda_lib.build()" in c]
+    codec_steps = [c for c in steps if "blosc_codec" in c]
+    check(len(kernel_steps) == 1 and len(codec_steps) == 1,
+          f"Dockerfile.torch build steps {steps}")
+    # the codec step needs libblosc, which the image installs; a host
+    # without it runs the pure codec, as phase 6 does
+    run_steps = kernel_steps + (codec_steps if ctypes.util.find_library(
+        "blosc") else [])
+    for code in run_steps:
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], cwd=app,
+                              env=_image_env(app), capture_output=True,
+                              text=True, timeout=IMAGE_TIMEOUT_S)
+        check(proc.returncode == 0,
+              f"image build step exited {proc.returncode}: {code}\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        print(f"image build step ({time.perf_counter() - t:.1f} s): {code} "
+              f"-> {proc.stdout.strip()}")
+    if len(run_steps) == 1:
+        print("image codec step not run: this host has no libblosc (the "
+              "image installs libblosc1); the entry runs the pure codec")
+    built = _kernel_build_files(app)
+    libs = [n for n in built if n.startswith("libcrimac_kernels-")]
+    check(len(libs) == 1, f"kernel build left {sorted(built)}")
+
+    config = tmp / "image_config.yaml"
+    config.write_text("# the flagship defaults, on the card\ndevice: cuda\n")
+    out_dir = tmp / "image_out"
+    env = _image_env(app, MODELWEIGHTS=str(tmp / "zarr_model.pt"),
+                     SURVEY_PATH=str(sv), CONFIG_PATH=str(config),
+                     OUTPUT_DIR=str(out_dir), PRED_FILE="pred.zarr")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "crimac_unet_tpu_torch.pipeline.dockerscript"],
+        cwd=app, env=env, capture_output=True, text=True,
+        timeout=IMAGE_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    check(proc.returncode == 0,
+          f"image entry exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-6000:]}")
+    launches = re.search(r"^Kernel launches: (\{.*\})$", proc.stdout, re.M)
+    fwd = re.search(r"^U-Net forwards: (\d+); kernel library (\S+), built "
+                    r"by this process: (yes|no)$", proc.stdout, re.M)
+    check(launches is not None and fwd is not None,
+          f"image entry printed no launch lines:\n{proc.stdout[-3000:]}")
+    counts, n_fwd = json.loads(launches.group(1)), int(fwd.group(1))
+    check(fwd.group(3) == "no" and Path(fwd.group(2)).name == libs[0]
+          and _kernel_build_files(app) == built,
+          f"image entry rebuilt its kernels: {fwd.group(0)}; build "
+          f"directory {built} -> {_kernel_build_files(app)}")
+    check(n_fwd > 0 and counts["gather_db"] == counts["relu_pool_skip"]
+          == n_fwd and counts == docker_counts,
+          f"image entry launches {counts} ({n_fwd} forwards) against phase "
+          f"6's docker run {docker_counts}")
+    got = ZGroup.open(str(out_dir / "pred.zarr"))
+    want = ZGroup.open(str(tmp / "docker_out" / "pred.zarr"))
+    for key in ("annotation", "ping_time", "range", "category"):
+        a, b = got[key][:], want[key][:]
+        check(a.dtype == b.dtype and a.shape == b.shape
+              and a.tobytes() == b.tobytes(),
+              f"image entry's {key} differs from phase 6's docker store")
+    print(f"image entry ({wall:.1f} s, {proc.stdout.count(chr(10))} lines "
+          f"of output): exit 0, {n_fwd} forwards, launches {counts} = phase "
+          f"6's docker run, kernel library {libs[0]} prebuilt and not "
+          f"rebuilt, store bit-equal to phase 6's docker store "
+          f"{tuple(got['annotation'].shape)}; codec line: "
+          + next((ln for ln in proc.stdout.splitlines()
+                  if ln.startswith("Blosc codec backend")), "none")
+          + f" [{card}]")
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"image": counts}, {
+        "image entry pings/s": got["annotation"].shape[1] / wall}
+
+
 RECIPES = ("baseline", "fast", "meta-early", "meta-late", "zarr")
 
 
@@ -4760,10 +4926,10 @@ def main(argv=None) -> int:
         parallel_worker(int(argv[1]), int(argv[2]), argv[3])
         return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(map(str, range(1, 23))),
-                    help="comma-separated subset of phases 1-22 (11 and 18 "
+    ap.add_argument("--phases", default=",".join(map(str, range(1, 24))),
+                    help="comma-separated subset of phases 1-23 (11 and 18 "
                          "need 4 and 6, 17 needs 4, 19 and 21 need 6 and 12, "
-                         "20 needs 6)")
+                         "20 and 23 need 6)")
     ap.add_argument("--recipe", choices=RECIPES,
                     help="also train a full recipe (baseline: 15000 x "
                          "batch 4; fast: 3750 x 16; meta-early / meta-late: "
@@ -4798,6 +4964,8 @@ def main(argv=None) -> int:
                  "best.msgpack (or --trained-ckpt)")
     if 20 in phases and 6 not in phases:
         ap.error("phase 20 measures phase 6's survey")
+    if 23 in phases and 6 not in phases:
+        ap.error("phase 23 holds the image's entry to phase 6's docker run")
 
     import torch
     if not torch.cuda.is_available():
@@ -4827,7 +4995,7 @@ def main(argv=None) -> int:
                 torch, cuda_lib, ech_dir, reader, cfg, card)
             launches["binary_closing"] = \
                 by_path["memm_eval"]["binary_closing"]
-        if phases & {6, 7, 8, 11, 15, 16, 18, 19, 20, 21}:
+        if phases & {6, 7, 8, 11, 15, 16, 18, 19, 20, 21, 23}:
             sv, zreader = zarr_setup(torch, tmp)
         zarr_pred = None
         if 6 in phases:
@@ -4905,6 +5073,10 @@ def main(argv=None) -> int:
             rates.update(r)
         if 22 in phases:
             paths, r, probe_rows = phase_probes(torch, cuda_lib, card)
+            by_path.update(paths)
+            rates.update(r)
+        if 23 in phases:
+            paths, r = phase_image(tmp, sv, card, by_path["zarr_docker"])
             by_path.update(paths)
             rates.update(r)
         if args.recipe:

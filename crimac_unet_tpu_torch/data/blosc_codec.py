@@ -1,8 +1,9 @@
 """Blosc (v1 frame format) codec for the zarrlite data plane.
 
 The port's copy of the JAX package's ``crimac_unet_tpu/data/
-blosc_codec.py``, with the same three backends and semantics; only the
-native build differs (below).
+blosc_codec.py``, with the same three backends and semantics; the native
+build differs (below), and batch decodes through libblosc run on one
+pool of threads for the process (:func:`decode_pool`).
 
 Real CRIMAC survey stores are Blosc-compressed zarr v2: the reference
 writes predictions with ``Blosc(cname="zstd", clevel=3,
@@ -277,6 +278,21 @@ def decompress_into(frame: bytes, dst: np.ndarray) -> None:
     dst.view(np.uint8).reshape(-1)[:] = np.frombuffer(raw, np.uint8)
 
 
+DECODE_THREADS = 8
+
+
+def decode_pool():
+    """The process's decode threads (``utils.general.process_pool``),
+    shared by every read that fans its chunks out (zlib and libblosc
+    release the GIL while they decode).  A pool a read started
+    ``DECODE_THREADS`` new threads for each of a survey's thousands of
+    reads, each with a glibc malloc arena of its own, so the host RSS a
+    streaming call added depended on the arenas earlier reads had left
+    (ROADMAP C, F16)."""
+    from ..utils.general import process_pool
+    return process_pool("decode", DECODE_THREADS)
+
+
 def batch_decompress_into(frames: list, dsts: list) -> None:
     """Decode N frames into N preallocated contiguous arrays.  Uses the
     native batch path (std::thread fan-out, zero Python per-chunk
@@ -317,9 +333,7 @@ def batch_decompress_into(frames: list, dsts: list) -> None:
                 f"wanted {dsts[bad[0]].nbytes})")
         return
     if _load_libblosc() is not None and n >= 4:
-        from concurrent.futures import ThreadPoolExecutor
-        with ThreadPoolExecutor(max_workers=min(8, n)) as ex:
-            list(ex.map(decompress_into, frames, dsts))
+        list(decode_pool().map(decompress_into, frames, dsts))
         return
     for f, d in zip(frames, dsts):
         decompress_into(f, d)

@@ -1,11 +1,14 @@
 """zarrlite — a self-contained zarr-v2 directory-store implementation.
 
 The port's copy of the JAX package's ``crimac_unet_tpu/data/zarrlite.py``
-with one change: the converting float32 -> bfloat16 decode of
+with two changes: the converting float32 -> bfloat16 decode of
 :meth:`ZArray.read_into` is asked for explicitly (``cvt``) and writes
 bfloat16 BIT PATTERNS into a ``np.uint16`` destination, which the caller
 views as a tensor with ``torch.from_numpy(u16).view(torch.bfloat16)``
-(numpy has no bfloat16 dtype of its own).
+(numpy has no bfloat16 dtype of its own); and a read that decodes its
+chunks in parallel runs them on the process's decode threads
+(``blosc_codec.decode_pool``), where the JAX package starts a pool of
+eight threads for each read.
 
 The reference framework's on-disk survey contract is zarr v2 directories
 (``<survey>_sv.zarr`` / ``_labels.zarr`` / ``_bottom.zarr``, written with
@@ -488,12 +491,11 @@ class ZArray:
             for i, cidx in enumerate(chunk_idxs):
                 place(cidx, buf[i])
         elif len(chunk_idxs) >= 4 and self.compressor is not None:
-            # zlib.decompress releases the GIL: decode in parallel
-            from concurrent.futures import ThreadPoolExecutor
-            with ThreadPoolExecutor(max_workers=8) as ex:
-                for cidx, chunk in zip(chunk_idxs,
-                                       ex.map(self._read_chunk, chunk_idxs)):
-                    place(cidx, chunk)
+            # zlib.decompress releases the GIL: decode in parallel on the
+            # process's decode threads
+            for cidx, chunk in zip(chunk_idxs, blosc_codec.decode_pool().map(
+                    self._read_chunk, chunk_idxs)):
+                place(cidx, chunk)
         else:
             for cidx in chunk_idxs:
                 place(cidx, self._read_chunk(cidx))

@@ -20,6 +20,7 @@ on ``cuda`` unless the config sets ``device``.
 
 from __future__ import annotations
 
+import json
 import os
 import time
 
@@ -28,6 +29,7 @@ from ..data import blosc_codec
 from ..data.zarr_reader import DataReaderZarr
 from ..models.unet import build_unet
 from ..models.weights import load_checkpoint
+from ..ops import cuda_lib
 from ..parallel.mesh import init_distributed
 from ..utils.general import fix_seeds
 from .predict import save_survey_predictions_zarr
@@ -98,6 +100,12 @@ def main():
         model_name="docker", progress=True,
         save_labels=save_labels)
     print(runner.timer.report())
+    # which kernels carried the run, and whether this process had to
+    # build them (an image ships them prebuilt: Dockerfile.torch)
+    print(f"Kernel launches: {json.dumps(cuda_lib.launches)}")
+    print(f"U-Net forwards: {runner.forwards}; kernel library "
+          f"{cuda_lib.library_path()}, built by this process: "
+          f"{'yes' if cuda_lib.build_log else 'no'}")
     print(f"Executed time (hours): {(time.time() - start) / 3600:.2f}")
     return runner
 

@@ -13,8 +13,6 @@ host total one group behind.  Memmap and zarr surveys; metadata channels
 
 from __future__ import annotations
 
-from concurrent.futures import ThreadPoolExecutor
-
 import numpy as np
 import torch
 
@@ -23,6 +21,7 @@ from ..ops import metrics
 from ..ops.label_ops import (BIG_ROW, REFINE_THRESHOLD_HI,
                              REFINE_THRESHOLD_LO)
 from ..ops.patches import grid_dims, make_grid_starts
+from ..utils.general import process_pool, settle
 from .infer_common import (_convert_labels_host, _fill_hwc_slab,
                            _grid_extent_rows, _quantize_db_u8,
                            grid_center_cols)
@@ -184,7 +183,9 @@ def evaluate_reader(runner: GriddedRunner, reader, hist, eval_mode="all",
 
     hist_host = np.zeros((2, metrics.N_F16_BINS), np.int64)
     hist_host += np.asarray(torch.as_tensor(hist).cpu()).astype(np.int64)
-    executor = ThreadPoolExecutor(max_workers=1)
+    # the process's staging thread (utils.general.process_pool)
+    executor = process_pool("eval-prefetch", 1)
+    fut = None
     try:
         fut = executor.submit(prepare, *col_groups[0]) if col_groups \
             else None
@@ -210,7 +211,7 @@ def evaluate_reader(runner: GriddedRunner, reader, hist, eval_mode="all",
         if pending is not None:
             hist_host += pending.cpu().numpy().astype(np.int64)
     finally:
-        executor.shutdown(wait=True, cancel_futures=True)
+        settle([fut])
     return hist_host
 
 

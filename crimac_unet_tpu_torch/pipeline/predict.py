@@ -3,7 +3,8 @@
 Reproduces the reference's save_predict chunked pipeline
 (save_predict.py:87-265), as the JAX package's
 ``crimac_unet_tpu/pipeline/predict.py`` does, as a software-pipelined
-host/device loop: prefetch threads build one raw slab per ping chunk (and
+host/device loop: two prefetch threads (the process's, kept from call to
+call) build one raw slab per ping chunk (and
 its metadata channels) and start its host-to-device copy on a side stream
 from pinned memory, the main thread enqueues the chunk's device work
 (runner.py: patch or slab mode), each chunk's output comes back through a
@@ -20,7 +21,6 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -29,6 +29,7 @@ from ..constants import SEABED_PAD
 from ..data import blosc_codec
 from ..ops.label_ops import BIG_ROW
 from ..ops.patches import grid_dims, make_grid_starts
+from ..utils.general import process_pool, settle
 from ..utils.preload_split import get_data_split
 from .infer_common import (_U8_PROB_DEQUANT, _fill_hwc_slab,
                            _grid_extent_rows, _quantize_db_u8, _round_up,
@@ -380,10 +381,12 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
         kr = min(_round_up(kr, 128), nr)
         return s, e, w, R, C, nr, kr, g.border, y0s, x0s, staged, label_pad
 
-    executor = ThreadPoolExecutor(max_workers=2)
+    # the process's two prefetch threads (they keep their malloc arenas
+    # from call to call; utils.general.process_pool)
+    executor = process_pool("prefetch", 2)
+    futs = collections.deque()
     try:
-        futs = collections.deque(executor.submit(prepare, *sp)
-                                 for sp in splits[:2])
+        futs.extend(executor.submit(prepare, *sp) for sp in splits[:2])
         n_submitted = len(futs)
 
         for _ in it:
@@ -433,7 +436,7 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
     finally:
         # deterministic teardown: abandoning the generator must not leave
         # prefetch threads staging chunks in the background
-        executor.shutdown(wait=True, cancel_futures=True)
+        settle(futs)
 
 
 def _ping_chunk(preload_n_pings: int) -> int:
@@ -555,11 +558,11 @@ def save_survey_predictions_zarr(runner, reader, target_dname,
                                   axis=0)
         runner.timer.stop("zarr_write")
 
-    # one ordered writer thread: the encode + file appends of chunk k
-    # overlap the device work of chunk k+1; appends stay sequential along
-    # ping_time, and a writer failure surfaces on the next submit or at
-    # the drain, before any out-of-order append
-    writer = ThreadPoolExecutor(max_workers=1)
+    # one ordered writer thread (the process's): the encode + file appends
+    # of chunk k overlap the device work of chunk k+1; appends stay
+    # sequential along ping_time, and a writer failure surfaces on the
+    # next submit or at the drain, before any out-of-order append
+    writer = process_pool("writer", 1)
     pending_write = None
     try:
         for s, e, out, lab in predict_reader(runner, reader,
@@ -576,7 +579,7 @@ def save_survey_predictions_zarr(runner, reader, target_dname,
         if pending_write is not None:
             pending_write.result()
     finally:
-        writer.shutdown(wait=True)
+        settle([pending_write])
     # a completed run of writes snapshots consolidated metadata, as
     # xarray-written stores carry; any append during the run dropped a
     # pre-existing snapshot, so a crash never leaves a stale one

@@ -3,10 +3,49 @@
 from __future__ import annotations
 
 import datetime
+import os
 import random
+import threading
 import time
 
 import numpy as np
+
+_pools: dict = {}
+_pools_lock = threading.Lock()
+
+
+def process_pool(name: str, workers: int):
+    """The process's thread pool ``name`` of ``workers`` threads, made at
+    its first use and kept.
+
+    The host pipelines stage, decode and write on such pools, not on a
+    pool of their own a call.  A new thread gets a glibc malloc arena at
+    its first allocation, and an arena keeps what its threads freed: with
+    new threads every call, the arena that held one call's writer could
+    serve the next call's prefetch thread and had to grow to a slab's
+    size, so the host RSS a streaming call added depended on what the
+    calls before it had left (ROADMAP C, F16).  Threads that stay keep
+    their arenas and their roles.  A forked child, whose copy of a pool
+    has no threads, makes its own."""
+    from concurrent.futures import ThreadPoolExecutor
+    with _pools_lock:
+        pid, pool = _pools.get(name, (None, None))
+        if pid != os.getpid():
+            pool = ThreadPoolExecutor(max_workers=workers,
+                                      thread_name_prefix=f"crimac-{name}")
+            _pools[name] = (os.getpid(), pool)
+        return pool
+
+
+def settle(futures) -> None:
+    """Cancel the futures not yet started and wait for the others: what
+    ``shutdown(wait=True, cancel_futures=True)`` does to a pool of one's
+    own, for one call's futures on a shared pool."""
+    from concurrent.futures import wait
+    futures = [f for f in futures if f is not None]
+    for f in futures:
+        f.cancel()
+    wait(futures)
 
 
 def fix_seeds(random_seed: int) -> None:

@@ -196,22 +196,30 @@ def vm_rss_bytes() -> int:
 
 class RssPeak:
     """The largest ``VmRSS`` over a ``with`` block, sampled by a thread
-    every 5 ms, minus the value just before it (``delta_bytes``).  A rise
-    shorter than one interval can go unseen."""
+    every 5 ms, minus the value just before it (``delta_bytes``), and
+    when in the block it was first reached (``peak_s``).  A rise shorter
+    than one interval can go unseen."""
 
     EVERY_S = 0.005
 
     def __init__(self):
         self.before = self.peak = 0
+        self.peak_s = 0.0
         self._stop = threading.Event()
         self._thread = None
 
+    def _take(self):
+        rss = vm_rss_bytes()
+        if rss > self.peak:
+            self.peak, self.peak_s = rss, time.perf_counter() - self.t0
+
     def _sample(self):
         while not self._stop.wait(self.EVERY_S):
-            self.peak = max(self.peak, vm_rss_bytes())
+            self._take()
 
     def __enter__(self):
         self.before = self.peak = vm_rss_bytes()
+        self.t0 = time.perf_counter()
         self._thread = threading.Thread(target=self._sample, daemon=True)
         self._thread.start()
         return self
@@ -219,7 +227,7 @@ class RssPeak:
     def __exit__(self, *exc):
         self._stop.set()
         self._thread.join()
-        self.peak = max(self.peak, vm_rss_bytes())
+        self._take()
         return False
 
     @property

@@ -21,7 +21,17 @@ command line first streams the bench survey (4000 pings) the same way in
 the same process, so the soak is read warm, and reports that run as
 ``ref``.
 
+Per chunk (``chunks``, :class:`ChunkLog`) it also reports where the
+host memory sits as the call goes: the RSS, the count of distinct
+U-Net input shapes seen so far (every distinct shape is one more set of
+cuDNN plans), the pinned host cache behind ``pin_memory()``
+(``torch.cuda.host_memory_stats``) and glibc's malloc counters (in use,
+free in the arenas, mmapped).  ``--control`` adds the soak again with
+``static_grid: true`` (one grid shape for every chunk), ``--repeat N``
+the same soak N more times in the process.
+
     python scripts/torch_soak50k.py patch [--pings 50000] [--ckpt best.msgpack]
+    python scripts/torch_soak50k.py slab --pings 20000 --control --repeat 1
     python scripts/torch_soak50k.py eval uint8
 
 Without ``--ckpt`` the weights are seeded random ones, as in the JAX
@@ -30,6 +40,7 @@ script.  Prints one JSON line.
 
 from __future__ import annotations
 
+import ctypes
 import shutil
 import subprocess
 import sys
@@ -97,6 +108,94 @@ def _seeded_weights(cfg):
                         ).state_dict()
 
 
+class _MallInfo2(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_size_t) for n in (
+        "arena", "ordblks", "smblks", "hblks", "hblkhd", "usmblks",
+        "fsmblks", "uordblks", "fordblks", "keepcost")]
+
+
+def malloc_counters() -> dict | None:
+    """glibc's ``mallinfo2`` over every arena: bytes handed out
+    (``in_use``, mmapped blocks included), free inside the arenas
+    (``free``) and mmapped (``mmap``); None where the C library has no
+    ``mallinfo2`` (not glibc, or older than 2.33)."""
+    try:
+        fn = ctypes.CDLL(None).mallinfo2
+    except (OSError, AttributeError):
+        return None
+    fn.restype = _MallInfo2
+    m = fn()
+    return {"in_use": m.uordblks + m.hblkhd, "free": m.fordblks,
+            "mmap": m.hblkhd}
+
+
+def pinned_counters(device) -> dict | None:
+    """The pinned host cache's byte and block counts
+    (``torch.cuda.host_memory_stats``: the ``*bytes.current`` keys and
+    the count of blocks it has pinned and unpinned); None off a card."""
+    if torch.device(device).type != "cuda" or not hasattr(
+            torch.cuda, "host_memory_stats"):
+        return None
+    return {k: int(v) for k, v in torch.cuda.host_memory_stats().items()
+            if k.endswith("bytes.current")
+            or k in ("num_host_alloc", "num_host_free")}
+
+
+class ChunkLog:
+    """Per-chunk host memory of one streaming call: after each chunk's
+    device work is enqueued (``_mask_output`` in prediction,
+    ``_eval_patches`` in evaluation) a row of the seconds since the
+    call began, the RSS, the count of distinct U-Net input shapes so
+    far, the pinned host cache and the malloc counters; and the RSS just
+    after the reader's seabed scan (``scan_rss``), which a call runs
+    before its first chunk.  Installed on one runner and its reader for
+    a ``with`` block."""
+
+    def __init__(self, runner, reader, device):
+        self.runner, self.reader, self.device = runner, reader, device
+        self.rows: list = []
+        self.shapes: set = set()
+        self.scan_rss = None
+
+    def _sample(self):
+        self.rows.append({"chunk": len(self.rows),
+                          "t_s": time.perf_counter() - self.t0,
+                          "rss_bytes": common.vm_rss_bytes(),
+                          "forward_shapes": len(self.shapes),
+                          "pinned": pinned_counters(self.device),
+                          "malloc": malloc_counters()})
+
+    def __enter__(self):
+        r = self.runner
+        self.t0 = time.perf_counter()
+        self._hook = r.model.register_forward_pre_hook(
+            lambda _m, args: self.shapes.add(tuple(args[0].shape)))
+        for site in ("_mask_output", "_eval_patches"):
+            real = getattr(r, site)
+
+            def spy(*a, _real=real, **k):
+                out = _real(*a, **k)
+                self._sample()
+                return out
+            setattr(r, site, spy)
+        real_seabed = self.reader.get_seabed
+
+        def seabed(*a, **k):
+            out = real_seabed(*a, **k)
+            if self.scan_rss is None:
+                self.scan_rss = common.vm_rss_bytes()
+            return out
+        self.reader.get_seabed = seabed
+        return self
+
+    def __exit__(self, *exc):
+        self._hook.remove()
+        for site in ("_mask_output", "_eval_patches"):
+            delattr(self.runner, site)
+        del self.reader.get_seabed
+        return False
+
+
 def read_store(path, reader) -> dict:
     """What a prediction store holds: its ping count (the joint length of
     the annotation and ping_time), whether its ping times are the
@@ -116,10 +215,12 @@ def read_store(path, reader) -> dict:
 
 
 def run(mode, ckpt=None, survey=None, device="cuda", model=None,
-        transfer=None, out=None, paths=None, preload_n_pings=1000) -> dict:
+        transfer=None, out=None, paths=None, preload_n_pings=1000,
+        static_grid=False) -> dict:
     """One streaming call of ``mode`` over ``survey`` (a zarr store) with
     the weights ``ckpt`` (None: seeded random); ``out`` is the prediction
-    store (patch / slab)."""
+    store (patch / slab); ``static_grid`` runs every chunk on one grid
+    shape (the launch path is then ``soak_<mode>_static``)."""
     from crimac_unet_tpu_torch.data import blosc_codec
     from crimac_unet_tpu_torch.ops import metrics
     from crimac_unet_tpu_torch.pipeline.eval_gridded import evaluate_reader
@@ -131,18 +232,20 @@ def run(mode, ckpt=None, survey=None, device="cuda", model=None,
     td = transfer or ("uint8" if is_eval else "bfloat16")
     dev = common.device_of(device)
     cfg = common.model_config(model, infer_mode="patch" if is_eval else mode,
-                              transfer_dtype=td)
+                              transfer_dtype=td, static_grid=static_grid)
     sd = _seeded_weights(cfg) if ckpt is None else common.state_dict(ckpt)
     reader = common.zarr_reader(survey)
     n_pings, n_range = reader.shape
     runner = common.make_runner(sd, cfg, dev)
     paths = paths if paths is not None else common.Paths()
-    res = {"mode": mode, "transfer_dtype": td, "n_pings": n_pings,
-           "n_range": n_range, "codec_backend": blosc_codec.backend(),
+    res = {"mode": mode, "transfer_dtype": td, "static_grid": static_grid,
+           "n_pings": n_pings, "n_range": n_range,
+           "codec_backend": blosc_codec.backend(),
            "survey_compressor": reader.sv.compressor}
-    name = f"soak_{mode}" + (f"_{td}" if is_eval else "")
+    name = f"soak_{mode}" + (f"_{td}" if is_eval else "") \
+        + ("_static" if static_grid else "")
     with common.RssPeak() as rss, common.device_peak(dev, res), \
-            paths.path(name, runner):
+            paths.path(name, runner), ChunkLog(runner, reader, dev) as log:
         t0 = time.perf_counter()
         if is_eval:
             hist = np.asarray(evaluate_reader(runner, reader,
@@ -154,14 +257,50 @@ def run(mode, ckpt=None, survey=None, device="cuda", model=None,
         wall = time.perf_counter() - t0
     res.update(wall_s=wall, pings_per_sec=n_pings / wall,
                rss_before_bytes=rss.before, rss_peak_bytes=rss.peak,
-               rss_delta_bytes=rss.delta_bytes,
+               rss_delta_bytes=rss.delta_bytes, rss_peak_s=rss.peak_s,
+               rss_after_scan_bytes=log.scan_rss,
                timers=runner.timer.summary(), launches=paths.counts[name],
-               device=common.card_name(dev))
+               device=common.card_name(dev), chunks=log.rows,
+               forward_shapes=sorted(map(list, log.shapes)))
     if is_eval:
         res.update(n_scored=int(hist.sum()), n_pos=int(hist[0].sum()))
     else:
         res.update(read_store(out, reader))
     return res
+
+
+def scan_line(res) -> str:
+    """The run's RSS before it, after its seabed scan and at its peak
+    (MiB), and when the peak came."""
+    mb = 2 ** -20
+    scan = res["rss_after_scan_bytes"]
+    return (f"RSS before {res['rss_before_bytes'] * mb:.1f}, after the "
+            f"seabed scan "
+            + ("n/a" if scan is None else f"{scan * mb:.1f}")
+            + f", peak {res['rss_peak_bytes'] * mb:.1f} at "
+              f"{res['rss_peak_s']:.3f} s of {res['wall_s']:.3f} s: delta "
+              f"{res['rss_delta_bytes'] * mb:.1f} MiB")
+
+
+def chunk_lines(res, every=1) -> list:
+    """The per-chunk rows of a run as text: every ``every``-th chunk and
+    the last, in MiB."""
+    mb = 2 ** -20
+    rows = res["chunks"]
+    lines = []
+    for r in rows[::every] + ([rows[-1]] if (len(rows) - 1) % every
+                              else []):
+        pin = r["pinned"] or {}
+        mal = r["malloc"] or {}
+        lines.append(
+            f"    chunk {r['chunk']:3d} at {r['t_s']:6.3f} s: RSS "
+            f"{r['rss_bytes'] * mb:8.1f}, "
+            f"shapes {r['forward_shapes']}, pinned "
+            + (", ".join(f"{k} {v * mb:.1f}" if "bytes" in k else f"{k} {v}"
+                         for k, v in pin.items()) or "n/a")
+            + ", malloc " + (", ".join(f"{k} {v * mb:.1f}"
+                                       for k, v in mal.items()) or "n/a"))
+    return lines
 
 
 def main(argv=None):
@@ -175,6 +314,11 @@ def main(argv=None):
                     choices=("uint8", "bfloat16", "float32"),
                     help="eval's transfer dtype (default uint8)")
     ap.add_argument("--pings", type=int, default=N_PINGS)
+    ap.add_argument("--control", action="store_true",
+                    help="also stream the soak with static_grid: true "
+                         "(patch and slab)")
+    ap.add_argument("--repeat", type=int, default=0,
+                    help="stream the soak this many more times")
     args = ap.parse_args(argv)
     sv = ensure_fixture(args.work, args.pings)
     # the same mode over the bench survey first, in this process: the
@@ -183,10 +327,27 @@ def main(argv=None):
     ref = run(args.mode, args.ckpt, common.bench_survey(args.work),
               args.device, transfer=args.transfer,
               out=Path(args.work) / f"pred_{args.mode}_ref.zarr")
-    res = run(args.mode, args.ckpt, sv, args.device, transfer=args.transfer,
-              out=Path(args.work) / f"pred_{args.mode}.zarr")
+    arms = [("soak", False)] * (1 + args.repeat)
+    if args.control and args.mode != "eval":
+        arms.append(("control", True))
+    runs = [("ref", ref)]
+    for label, static in arms:
+        runs.append((label, run(
+            args.mode, args.ckpt, sv, args.device, transfer=args.transfer,
+            out=Path(args.work) / f"pred_{args.mode}.zarr",
+            static_grid=static)))
+    for label, r in runs:
+        print(f"{label} ({r['n_pings']} pings, static_grid "
+              f"{r['static_grid']}): {scan_line(r)}, "
+              f"{len(r['forward_shapes'])} forward shapes "
+              f"{r['forward_shapes']}", flush=True)
+        print("\n".join(chunk_lines(r)), flush=True)
+    res = runs[1][1]
     res["ref"] = {k: ref[k] for k in ("n_pings", "wall_s", "pings_per_sec",
                                       "rss_delta_bytes", "peak_device_bytes")}
+    res["arms"] = [{"label": label, **{k: r[k] for k in (
+        "n_pings", "static_grid", "rss_before_bytes", "rss_delta_bytes",
+        "pings_per_sec", "forward_shapes")}} for label, r in runs]
     for name, st in sorted(res["timers"].items()):
         print(f"  {name:16s} total {st['total_s']:8.3f}s  n={st['n']}",
               flush=True)

@@ -382,10 +382,11 @@ def soak_survey(tmp_path_factory):
     return work, sv
 
 
-SOAK_KEYS = {"mode", "transfer_dtype", "n_pings", "n_range",
+SOAK_KEYS = {"mode", "transfer_dtype", "static_grid", "n_pings", "n_range",
              "codec_backend", "survey_compressor", "peak_device_bytes",
              "wall_s", "pings_per_sec", "rss_before_bytes", "rss_peak_bytes",
-             "rss_delta_bytes", "timers", "launches", "device"}
+             "rss_delta_bytes", "rss_peak_s", "rss_after_scan_bytes",
+             "timers", "launches", "device", "chunks", "forward_shapes"}
 STORE_KEYS = {"store_shape", "store_pings", "ping_time_equal",
               "store_finite", "written_px", "pings_with_output",
               "store_compressor"}
