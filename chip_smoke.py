@@ -1502,7 +1502,6 @@ def phase_main(torch, cuda_lib, ech_dir, reader, cfg, card):
     runner = GriddedRunner(build_unet(cfg), sd, cfg)
     run(runner, "warm-up (cuDNN plans, allocator)")
     runner.timer.reset()
-    p0 = runner.patches_processed
     torch.cuda.reset_peak_memory_stats()
     counts, fwd, dt = run(runner, "main path, BatchNorm folded")
     check(fwd > 0 and counts["gather_db"] == fwd
@@ -1512,7 +1511,9 @@ def phase_main(torch, cuda_lib, ech_dir, reader, cfg, card):
     launches["relu_pool_skip"] = counts["relu_pool_skip"]
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB, U-Net {n_params} parameters, "
-          f"{runner.patches_processed - p0} patches in {fwd} forwards")
+          f"{runner.timer.totals.get('n_fwd_px', 0)} input pixels "
+          f"({runner.timer.totals.get('n_pad_px', 0)} of them pad) in {fwd} "
+          "forwards")
     print(f"PhaseTimer, main path, BatchNorm folded [{card}]:")
     print(runner.timer.report())
     profile_run(torch, lambda: run(runner, "profiled run")[2], card)

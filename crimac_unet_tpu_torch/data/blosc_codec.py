@@ -333,7 +333,8 @@ def batch_decompress_into(frames: list, dsts: list) -> None:
                 f"wanted {dsts[bad[0]].nbytes})")
         return
     if _load_libblosc() is not None and n >= 4:
-        list(decode_pool().map(decompress_into, frames, dsts))
+        from ..utils.general import map_charged
+        list(map_charged(decode_pool(), decompress_into, frames, dsts))
         return
     for f, d in zip(frames, dsts):
         decompress_into(f, d)

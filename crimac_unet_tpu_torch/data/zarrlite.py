@@ -492,9 +492,11 @@ class ZArray:
                 place(cidx, buf[i])
         elif len(chunk_idxs) >= 4 and self.compressor is not None:
             # zlib.decompress releases the GIL: decode in parallel on the
-            # process's decode threads
-            for cidx, chunk in zip(chunk_idxs, blosc_codec.decode_pool().map(
-                    self._read_chunk, chunk_idxs)):
+            # process's decode threads, their CPU charged to this thread
+            from ..utils.general import map_charged
+            for cidx, chunk in zip(chunk_idxs, map_charged(
+                    blosc_codec.decode_pool(), self._read_chunk,
+                    chunk_idxs)):
                 place(cidx, chunk)
         else:
             for cidx in chunk_idxs:

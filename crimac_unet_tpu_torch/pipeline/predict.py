@@ -212,7 +212,29 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
     grid (``static_grid_shape_for_reader``), grown to at least
     ``fixed_R``/``fixed_C`` when a survey-level caller shares one grid
     over several readers; in patch mode the outputs equal the per-chunk
-    grid's (live patches read the same slab values)."""
+    grid's (live patches read the same slab values).
+
+    The runner's timer holds the pass's phases, each with its chunk's
+    first ping: ``pass_head`` from this call to the first chunk's
+    ``device_chunk`` (the seabed lookup and the static grid's shape
+    inside it), and a chunk's ``host_slab`` / ``host_fill`` /
+    ``host_label`` / ``h2d_dispatch`` on a prefetch thread,
+    ``wait_prefetch``, ``device_chunk``, ``device_wait`` and ``d2h`` on
+    this one; on the card ``chunk_stream`` adds each chunk's time on the
+    stream, from a CUDA event before its slab's wait to one after its
+    output's copy: the device's time where the card is fed ahead of it,
+    the launch's where the host enqueues slower than the card runs."""
+    runner.timer.start("pass_head")
+    yield from _predict_chunks(runner, reader, preload_n_pings, start_ping,
+                               progress, save_labels, fixed_R, fixed_C)
+
+
+def _predict_chunks(runner, reader, preload_n_pings, start_ping, progress,
+                    save_labels, fixed_R, fixed_C):
+    """The body of :func:`predict_reader`.  The caller has started the
+    ``pass_head`` phase on this thread: the first chunk's
+    ``device_chunk`` ends it, or the generator's end."""
+    timer = runner.timer
     o = runner.overlap
     wh, ww = runner.window
     sh, sw = runner.stride
@@ -226,16 +248,19 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
     chunk = preload_n_pings if preload_n_pings > 0 else 5000
     splits = get_data_split([[start_ping, n_pings]], chunk)
 
-    seabed_full = np.asarray(reader.get_seabed(0, n_pings)).astype(np.int64)
-    seabed_has = np.asarray(reader.seabed_known(0, n_pings))
+    with timer.phase("seabed_lookup"):
+        seabed_full = np.asarray(reader.get_seabed(0, n_pings)).astype(
+            np.int64)
+        seabed_has = np.asarray(reader.seabed_known(0, n_pings))
 
     # static_grid: one grid shape for every chunk (survey-max height,
     # widest chunk); chunk_geometry keeps the reference grid's extents
     static = runner.static_grid
     fixed = None
     if static and len(splits):
-        R_fix, C_fix = static_grid_shape_for_reader(
-            reader, runner.window, o, preload_n_pings, start_ping)
+        with timer.phase("static_grid_shape"):
+            R_fix, C_fix = static_grid_shape_for_reader(
+                reader, runner.window, o, preload_n_pings, start_ping)
         fixed = (max(R_fix, int(fixed_R or 0)),
                  max(C_fix, int(fixed_C or 0)))
     slab_mode = runner.infer_mode == "slab"
@@ -259,12 +284,14 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
     pipeline_depth = int(runner.pipeline_depth)
 
     def _drain(entry):
-        s0, e0, out, keep, event, lab = entry
-        runner.timer.start("device_wait")
+        s0, e0, out, keep, started, event, lab = entry
+        timer.start("device_wait", s0)
         if event is not None:
             event.synchronize()
-        runner.timer.stop("device_wait")
-        runner.timer.start("d2h")
+        timer.stop("device_wait")
+        if started is not None:
+            timer.add("chunk_stream", started.elapsed_time(event) * 1e-3)
+        timer.start("d2h", s0)
         # `out` holds only the rows above the host-computed keep-row
         # bound (_keep_row_bound); rebuild the full range on the host
         kr = min(out.shape[1], n_range)
@@ -274,7 +301,7 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
             if part.dtype == np.uint8:
                 part = _U8_PROB_DEQUANT[part]
             host[:, :kr, :] = part
-        runner.timer.stop("d2h")
+        timer.stop("d2h")
         if lab is not None:
             # the exported labels take the device write mask itself (rows
             # at/below kr have keep False); float32 carries 4-digit LSSS
@@ -291,22 +318,22 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
         overlapped with the device work of earlier chunks)."""
         s, e = int(s), int(e)
         w = e - s
-        runner.timer.start("host_slab")
+        timer.start("host_slab", s)
         g = chunk_geometry(runner.window, o, n_range, n_pings, seabed_full,
                            seabed_has, s, e, is_zarr, fixed)
         R, C, Hs, row_cut, nr = g.R, g.C, g.Hs, g.row_cut, g.nr
         Hp = R * sh + 2 * o
         data_slab = np.zeros((Hs, g.Wp, len(runner.frequencies)),
                              np.uint16 if bf16_bits else np.float32)
-        runner.timer.start("host_fill")
+        timer.start("host_fill", s)
         _fill_hwc_slab(reader, runner.frequencies, data_slab, g.slab_x0,
                        g.slab_x1, g.slab_y1, o, g.x_off)
-        runner.timer.stop("host_fill")
+        timer.stop("host_fill")
 
         # write-mask inputs: only rows [0, nr) (the grid-covered range;
         # under static_grid the static grid's rows, the pad rows NaN
         # labelled and beyond row_cut)
-        runner.timer.start("host_label")
+        timer.start("host_label", s)
         if is_zarr:
             lab = reader.get_label_slice(s, w, 0, row_cut)  # (w, row_cut)
         else:
@@ -324,7 +351,7 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
             zero_pad = np.zeros((nr, C * sw), bool)
             fin_pad[:row_cut, :w] = np.isfinite(lab).T
             zero_pad[:row_cut, :w] = (lab == 0).T
-        runner.timer.stop("host_label")
+        timer.stop("host_label")
         sb_vec = np.full(C * sw, BIG_ROW, np.int64)
         sb_vec[:w] = np.where(seabed_has[s:e], seabed_full[s:e], BIG_ROW)
         y0s, x0s = make_grid_starts(R, C, *runner.stride, o, o, o)
@@ -345,12 +372,12 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
                 meta["meta_slab"] = meta_slab.transpose(1, 2, 0)
                 meta["consts"] = np.pad(consts,
                                         ((0, Np - len(y0s)), (0, 0)))
-        runner.timer.stop("host_slab")
+        timer.stop("host_slab")
 
         # labels never ship: the write mask consults only isfinite(label)
         # and label == 0, packed to 1 bit/px here on the exact float32
         # host labels (bit-identical under every transfer_dtype)
-        runner.timer.start("h2d_dispatch")
+        timer.start("h2d_dispatch", s)
         bit_planes = [np.packbits(fin_pad, axis=1),
                       np.packbits(zero_pad, axis=1)]
         if runner.transfer_dtype == "uint8":
@@ -373,7 +400,7 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
         staged = _to_device(runner, dict(
             meta, data_slab=slab_xfer, lab_bits=np.stack(bit_planes),
             sb_row=np.append(sb_vec, np.int64(row_cut))), copy_stream)
-        runner.timer.stop("h2d_dispatch")
+        timer.stop("h2d_dispatch")
         # d2h crop bound, bucketed to 128-row multiples as in the JAX
         # package (keeps the d2h shapes few)
         kr = _keep_row_bound(fin_pad, zero_pad, sb_vec, row_cut, nr,
@@ -385,24 +412,34 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
     # from call to call; utils.general.process_pool)
     executor = process_pool("prefetch", 2)
     futs = collections.deque()
+    head = True
     try:
         futs.extend(executor.submit(prepare, *sp) for sp in splits[:2])
         n_submitted = len(futs)
 
-        for _ in it:
-            (s, e, w, R, C, nr, kr, border_ext, y0s, x0s, staged,
-             lab_host) = futs.popleft().result()
+        for split in it:
+            with timer.phase("wait_prefetch", int(split[0])):
+                (s, e, w, R, C, nr, kr, border_ext, y0s, x0s, staged,
+                 lab_host) = futs.popleft().result()
             if n_submitted < len(splits):
                 futs.append(executor.submit(prepare, *splits[n_submitted]))
                 n_submitted += 1
 
-            runner.timer.start("device_chunk")
+            if head:
+                timer.stop("pass_head")
+                head = False
+            timer.start("device_chunk", s)
+            started = None
+            if is_cuda:
+                # the chunk's time on the stream runs from here to
+                # `event`
+                started = torch.cuda.Event(enable_timing=True)
+                started.record()
             dev = staged.ready()
             if slab_mode:
                 stitched = runner._predict_slab(
                     dev["data_slab"], border_ext, R, C, dev.get("meta_full"))
             else:
-                runner.patches_processed += len(y0s)
                 y0p, x0p = runner.grid_starts(y0s, x0s)
                 stitched = runner._predict_patches(
                     dev["data_slab"], y0p, x0p, len(y0s), border_ext, R, C,
@@ -424,10 +461,10 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
                                          pin_memory=True).copy_(
                                  t, non_blocking=True)
                              for t in (out, keep))
-                event = torch.cuda.Event()
+                event = torch.cuda.Event(enable_timing=True)
                 event.record()
-            pending.append((s, e, out, keep, event, lab_host))
-            runner.timer.stop("device_chunk")
+            pending.append((s, e, out, keep, started, event, lab_host))
+            timer.stop("device_chunk")
             if len(pending) >= pipeline_depth:
                 yield _drain(pending.pop(0))
 
@@ -437,6 +474,8 @@ def predict_reader(runner: GriddedRunner, reader, preload_n_pings=1000,
         # deterministic teardown: abandoning the generator must not leave
         # prefetch threads staging chunks in the background
         settle(futs)
+        if head:
+            timer.stop("pass_head")
 
 
 def _ping_chunk(preload_n_pings: int) -> int:
@@ -495,12 +534,20 @@ def save_survey_predictions_zarr(runner, reader, target_dname,
     append along ping_time, resume from the existing ping count.
     ``save_labels`` adds a masked (ping_time, range) float32 ``labels``
     array.  ``fixed_R``/``fixed_C``: the survey-level static grid (see
-    predict_reader)."""
+    predict_reader).
+
+    Besides predict_reader's phases, the runner's timer holds
+    ``pass_head`` from this call on (the removal of a store not resumed,
+    ``store_remove``, inside it), each chunk's ``zarr_write`` on the
+    writer thread and ``wait_writer``, this thread's wait for the
+    chunk's write before it hands the next one over."""
     import os
     import shutil
 
     from ..data.zarrlite import ZGroup
 
+    timer = runner.timer
+    timer.start("pass_head")  # the first chunk's device_chunk ends it
     n_pings, n_range = reader.shape if reader.data_format == "zarr" else \
         (reader.shape[1], reader.shape[0])
 
@@ -510,7 +557,8 @@ def save_survey_predictions_zarr(runner, reader, target_dname,
     start_ping = 0
     if writes and not resume_writing:
         if os.path.isdir(target_dname):
-            shutil.rmtree(target_dname)
+            with timer.phase("store_remove"):
+                shutil.rmtree(target_dname)
     elif writes and os.path.isdir(target_dname):
         group = ZGroup.open(target_dname)
         start_ping = _resume_point(group, target_dname, save_labels)
@@ -520,7 +568,7 @@ def save_survey_predictions_zarr(runner, reader, target_dname,
 
     def write_chunk(s, e, out, lab):
         nonlocal group
-        runner.timer.start("zarr_write")
+        timer.start("zarr_write", s)
         pred = out.transpose(0, 2, 1)  # -> (category, ping, range)
         if group is None:
             group = ZGroup.create(
@@ -556,28 +604,31 @@ def save_survey_predictions_zarr(runner, reader, target_dname,
             group["labels"].append(lab.T, axis=0)
         group["ping_time"].append(np.asarray(reader.time_vector[s:e]),
                                   axis=0)
-        runner.timer.stop("zarr_write")
+        timer.stop("zarr_write")
 
     # one ordered writer thread (the process's): the encode + file appends
     # of chunk k overlap the device work of chunk k+1; appends stay
     # sequential along ping_time, and a writer failure surfaces on the
     # next submit or at the drain, before any out-of-order append
     writer = process_pool("writer", 1)
-    pending_write = None
+    pending_write = written = None
     try:
-        for s, e, out, lab in predict_reader(runner, reader,
-                                             preload_n_pings, start_ping,
-                                             progress and writes,
-                                             save_labels=save_labels,
-                                             fixed_R=fixed_R,
-                                             fixed_C=fixed_C):
+        for s, e, out, lab in _predict_chunks(runner, reader,
+                                              preload_n_pings, start_ping,
+                                              progress and writes,
+                                              save_labels, fixed_R,
+                                              fixed_C):
             if not writes:
                 continue
             if pending_write is not None:
-                pending_write.result()  # re-raises writer errors in order
+                # re-raises writer errors in order
+                with timer.phase("wait_writer", written):
+                    pending_write.result()
             pending_write = writer.submit(write_chunk, s, e, out, lab)
+            written = s
         if pending_write is not None:
-            pending_write.result()
+            with timer.phase("wait_writer", written):
+                pending_write.result()
     finally:
         settle([pending_write])
     # a completed run of writes snapshots consolidated metadata, as

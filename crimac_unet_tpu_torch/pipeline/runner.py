@@ -121,8 +121,9 @@ class GriddedRunner:
         validate_meta_channels(self.meta_channels)
         self.use_meta = get_in_channels(self.meta_channels) > 0
         self.late_meta = bool(config.get("late_meta_inject", False))
+        # phases and counters: n_fwd_px / n_pad_px, the input pixels the
+        # U-Net forwards and those of them that pad a sub-batch or a slab
         self.timer = PhaseTimer()
-        self.patches_processed = 0  # forward-pass patch count
         self.forwards = 0           # U-Net forward calls (sub-batches)
         wh, ww = self.window
         self.stride = (wh - 2 * self.overlap, ww - 2 * self.overlap)
@@ -228,6 +229,8 @@ class GriddedRunner:
         (Np, Mc) hold the metadata (``_build_meta_inputs``)."""
         wh, ww = self.window
         B, Np, nb = self._sub_batch_shape(N)
+        self.timer.count("n_fwd_px", Np * wh * ww)
+        self.timer.count("n_pad_px", (Np - N) * wh * ww)
         b = B // mesh_size(self.mesh)
         sel = torch.empty((nb, b, wh, ww, 2), dtype=torch.float32,
                           device=self.device)
@@ -281,6 +284,9 @@ class GriddedRunner:
         r = mesh_rank(self.mesh)
         a, b = r * W16 // n, (r + 1) * W16 // n
         c0, c1 = max(a - self.slab_halo, 0), min(b + self.slab_halo, W16)
+        self.timer.count("n_fwd_px", H16 * (c1 - c0))
+        self.timer.count("n_pad_px", H16 * (c1 - c0)
+                         - Hp * max(min(c1, Wp) - c0, 0))
         x = gather_db(data_slab, self._origin, self._col_start(c0),
                       (H16, c1 - c0), border=border, scaled=self.use_meta,
                       out_dtype=self.model.dtype)

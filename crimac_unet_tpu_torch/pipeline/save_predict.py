@@ -98,9 +98,10 @@ def main(argv=None):
     runner = GriddedRunner(build_unet(config), state_dict, config,
                            device=config.get("device"))
     data_obj = make_partition(config)
-    # a torch.profiler trace of the run when CRIMAC_PROFILE_DIR is set
+    # a torch.profiler trace of the run when CRIMAC_PROFILE_DIR is set,
+    # with the runner's phases as spans beside the device's rows
     from ..utils.profiling import device_trace
-    with device_trace() as trace_dir:
+    with device_trace(timer=runner.timer) as trace_dir:
         run_save_predictions(config, runner, data_obj, predictions_dir,
                              progress=True)
     if trace_dir:

@@ -3,8 +3,9 @@
 The port's counterpart of ``crimac_unet_tpu/utils/profiling.py`` on
 ``torch.profiler``: ``device_trace`` records a chrome trace (CPU, and the
 card's kernels when it is there) into ``CRIMAC_PROFILE_DIR`` or the
-directory given, ``annotate`` names a region in it, and
-``device_op_table`` sums the trace's GPU kernel events by name.
+directory given, with the spans of the program's ``PhaseTimer`` beside
+the profiler's rows, and ``device_op_table`` sums the trace's GPU kernel
+events by name.
 """
 
 from __future__ import annotations
@@ -13,13 +14,22 @@ import contextlib
 import os
 import time
 
+# the rows of the timer's spans: one a thread, after the profiler's own
+SPAN_CATEGORY = "crimac_span"
+SPAN_TID0 = 1_000_000_000
+
 
 @contextlib.contextmanager
-def device_trace(log_dir=None, enabled=None):
+def device_trace(log_dir=None, enabled=None, timer=None):
     """Record a ``torch.profiler`` trace of the block, written as
     ``<log_dir>/trace-<time>.pt.trace.json.gz`` (chrome / Perfetto
     format), when enabled by argument or ``CRIMAC_PROFILE_DIR``.  CUDA
-    activities are recorded when a card is present."""
+    activities are recorded when a card is present.
+
+    ``timer`` (a ``utils.general.PhaseTimer``) records spans for the
+    block; they are written into the same trace as ``X`` events of
+    category ``crimac_span``, one row a thread (``spans <thread>``), with
+    ``args`` ``{chunk, parent}``, and cleared."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -38,21 +48,55 @@ def device_trace(log_dir=None, enabled=None):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield log_dir
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+    recording = timer is not None and timer.recording
+    if timer is not None:
+        timer.recording = True
+    try:
+        with profile(activities=activities) as prof:
+            yield log_dir
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+    finally:
+        if timer is not None:
+            timer.recording = recording
     name = f"trace-{time.strftime('%Y%m%d_%H%M%S')}-{os.getpid()}" \
         ".pt.trace.json.gz"
-    prof.export_chrome_trace(os.path.join(str(log_dir), name))
+    path = os.path.join(str(log_dir), name)
+    if timer is None:
+        prof.export_chrome_trace(path)
+        return
+    plain = path[:-3]
+    prof.export_chrome_trace(plain)
+    try:
+        _write_with_spans(plain, path, timer.take_spans())
+    finally:
+        os.remove(plain)
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named region in device traces."""
-    from torch.profiler import record_function
-    with record_function(name):
-        yield
+def _write_with_spans(plain, path, spans):
+    """The profiler's trace ``plain`` with ``spans`` added, gzipped to
+    ``path``: ``ts`` is a span's start less the trace's
+    ``baseTimeNanoseconds``, in us, as the profiler's own events."""
+    import gzip
+    import json
+
+    with open(plain) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    tids: dict = {}
+    events = doc.setdefault("traceEvents", [])
+    for name, thread, chunk, parent, t0, t1 in spans:
+        if thread not in tids:
+            tids[thread] = tid = SPAN_TID0 + len(tids)
+            events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                           "tid": tid, "args": {"name": f"spans {thread}"}})
+        events.append({"ph": "X", "cat": SPAN_CATEGORY, "name": name,
+                       "pid": pid, "tid": tids[thread],
+                       "ts": (t0 - base) * 1e-3, "dur": (t1 - t0) * 1e-3,
+                       "args": {"chunk": chunk, "parent": parent}})
+    with gzip.open(path, "wt") as f:
+        json.dump(doc, f)
 
 
 def _newest_trace(trace_dir):

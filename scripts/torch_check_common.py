@@ -196,15 +196,16 @@ def vm_rss_bytes() -> int:
 
 class RssPeak:
     """The largest ``VmRSS`` over a ``with`` block, sampled by a thread
-    every 5 ms, minus the value just before it (``delta_bytes``), and
-    when in the block it was first reached (``peak_s``).  A rise shorter
-    than one interval can go unseen."""
+    every 5 ms, minus the value just before it (``delta_bytes``), when in
+    the block it was first reached (``peak_s``) and the block's length
+    to its last sample (``wall_s``).  A rise shorter than one interval
+    can go unseen."""
 
     EVERY_S = 0.005
 
     def __init__(self):
         self.before = self.peak = 0
-        self.peak_s = 0.0
+        self.peak_s = self.wall_s = 0.0
         self._stop = threading.Event()
         self._thread = None
 
@@ -228,6 +229,7 @@ class RssPeak:
         self._stop.set()
         self._thread.join()
         self._take()
+        self.wall_s = time.perf_counter() - self.t0
         return False
 
     @property

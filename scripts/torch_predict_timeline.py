@@ -11,11 +11,13 @@ decomposes into who blocks whom:
 * ``dispatch_predict`` / ``dispatch_mask``: the runner's
   ``_predict_patches`` (or ``_predict_slab``) and ``_mask_output``
   (the host's enqueue of the chunk's device work);
-* every phase the pipeline's ``PhaseTimer`` brackets, on the thread that
-  runs it: ``host_slab`` (with ``host_fill`` and ``host_label`` inside)
-  and ``h2d_dispatch`` on the prefetch threads, ``device_chunk``,
-  ``device_wait`` (``_drain``'s ``event.synchronize()``) and ``d2h`` on
-  the main thread, ``zarr_write`` (``write_chunk``) on the writer thread;
+* every span the program's ``PhaseTimer`` records with ``recording``
+  on, on the thread that ran it: ``host_slab`` (with ``host_fill`` and
+  ``host_label`` inside) and ``h2d_dispatch`` on the prefetch threads,
+  ``pass_head`` (the seabed lookup inside it), ``wait_prefetch``,
+  ``device_chunk``, ``device_wait`` (``_drain``'s
+  ``event.synchronize()``), ``d2h`` and ``wait_writer`` on the main
+  thread, ``zarr_write`` (``write_chunk``) on the writer thread;
 * ``device``: beside the host intervals, CUDA events recorded before each
   chunk's dispatch and after its mask, placed on the host clock by an
   event recorded at the start of the pass, so the timeline shows when the
@@ -66,8 +68,10 @@ SERVING_KNOBS = ("infer_mode", "transfer_dtype", "output_dtype",
                  "static_grid", "alignment_warning", "pipeline_depth",
                  "fold_bn")
 SPY_KINDS = ("h2d", "dispatch_predict", "dispatch_mask")
+# the program's spans every pass records
 TIMER_KINDS = ("host_slab", "host_fill", "host_label", "h2d_dispatch",
-               "device_chunk", "device_wait", "d2h", "zarr_write")
+               "device_chunk", "device_wait", "d2h", "zarr_write",
+               "pass_head", "seabed_lookup", "wait_prefetch", "wait_writer")
 STORE_ARRAYS = ("annotation", "category", "range", "ping_time")
 
 
@@ -81,64 +85,50 @@ def arm_config(arm, model=None) -> dict:
 
 
 class Log:
-    """Intervals (t0, t1, kind, thread, MB) on one clock, from ``t0``."""
+    """Intervals (t0, t1, kind, thread, MB) in seconds from ``t0``, on the
+    program's span clock (``time.time_ns``)."""
 
     def __init__(self):
-        self.t0 = time.perf_counter()
+        self.t0 = time.time_ns()
         self.events: list = []
         self._lock = threading.Lock()
 
-    def add(self, kind, t0, t1, mb=0.0):
+    def add(self, kind, t0, t1, mb=0.0, thread=None):
         with self._lock:
-            self.events.append((t0 - self.t0, t1 - self.t0, kind,
-                                threading.current_thread().name, mb))
+            self.events.append(((t0 - self.t0) * 1e-9,
+                                (t1 - self.t0) * 1e-9, kind,
+                                thread or threading.current_thread().name,
+                                mb))
 
-
-def recording_timer(log: Log):
-    """A ``PhaseTimer`` that also logs each start / stop pair."""
-    from crimac_unet_tpu_torch.utils.general import PhaseTimer
-
-    class RecordingTimer(PhaseTimer):
-        def start(self, name):
-            super().start(name)
-            with self._lock:
-                self._starts[("rec", name, threading.get_ident())] = \
-                    time.perf_counter()
-
-        def stop(self, name):
-            dt = super().stop(name)
-            now = time.perf_counter()
-            with self._lock:
-                t0 = self._starts.pop(("rec", name, threading.get_ident()),
-                                      None)
-            if t0 is not None:
-                log.add(name, t0, now)
-            return dt
-
-    return RecordingTimer()
+    def add_spans(self, spans):
+        """The program's recorded spans, each on its own thread."""
+        for name, thread, _, _, t0, t1 in spans:
+            self.add(name, t0, t1, thread=thread)
 
 
 @contextlib.contextmanager
 def instrument(runner):
-    """Spies on ``predict._to_device``, the runner's dispatch methods and
-    its ``PhaseTimer``, and CUDA events around each chunk's device work;
-    yields ``(log, device)`` where ``device`` collects (start, end) event
-    pairs.  Restores every patched attribute on the way out, also when
-    the body raises."""
+    """Spies on ``predict._to_device`` and the runner's dispatch methods,
+    CUDA events around each chunk's device work, and the spans of the
+    runner's ``PhaseTimer`` (its ``recording`` on; they join the log on
+    the way out); yields ``(log, device)`` where ``device`` collects
+    (start, end) event pairs.  Restores every patched attribute and the
+    timer's ``recording`` on the way out, also when the body raises."""
     from crimac_unet_tpu_torch.pipeline import predict as P
     log = Log()
     device = {"ref": None, "pairs": []}
     cuda = runner.device.type == "cuda"
     real_put = P._to_device
-    real_timer = runner.timer
+    timer = runner.timer
+    recording = timer.recording
     names = ("_predict_patches", "_predict_slab", "_mask_output")
     real = {n: getattr(runner, n) for n in names}
 
     def put(r, host, stream):
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         out = real_put(r, host, stream)
         mb = sum(getattr(v, "nbytes", 0) for v in host.values()) / 1e6
-        log.add("h2d", t0, time.perf_counter(), mb)
+        log.add("h2d", t0, time.time_ns(), mb)
         return out
 
     def event():
@@ -150,22 +140,23 @@ def instrument(runner):
         def spy(*a, **k):
             if cuda:
                 device["pairs"].append([event(), None])
-            t0 = time.perf_counter()
+            t0 = time.time_ns()
             out = real[name](*a, **k)
-            log.add("dispatch_predict", t0, time.perf_counter())
+            log.add("dispatch_predict", t0, time.time_ns())
             return out
         return spy
 
     def mask(*a, **k):
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         out = real["_mask_output"](*a, **k)
-        log.add("dispatch_mask", t0, time.perf_counter())
+        log.add("dispatch_mask", t0, time.time_ns())
         if cuda:
             device["pairs"][-1][1] = event()
         return out
 
     P._to_device = put
-    runner.timer = recording_timer(log)
+    timer.take_spans()
+    timer.recording = True
     runner._predict_patches = dispatch("_predict_patches")
     runner._predict_slab = dispatch("_predict_slab")
     runner._mask_output = mask
@@ -173,11 +164,12 @@ def instrument(runner):
         if cuda:
             torch.cuda.synchronize(runner.device)
             device["ref"] = event()
-        log.t0 = time.perf_counter()
+        log.t0 = time.time_ns()
         yield log, device
     finally:
         P._to_device = real_put
-        runner.timer = real_timer
+        timer.recording = recording
+        log.add_spans(timer.take_spans())
         for n in names:
             runner.__dict__.pop(n, None)
 
@@ -279,7 +271,7 @@ def run_arm(arm, sd, reader, work, device, model=None, preload=1000,
                                      str(paths["instrumented"]),
                                      preload_n_pings=preload)
         tc.synchronize(dev)
-        wall = time.perf_counter() - log.t0
+        wall = (time.time_ns() - log.t0) * 1e-9
     dev_iv = device_intervals(device_log)
     kernels, kernel_ms = tc.profile_kernels(
         lambda: save_survey_predictions_zarr(

@@ -244,17 +244,20 @@ def run(mode, ckpt=None, survey=None, device="cuda", model=None,
            "survey_compressor": reader.sv.compressor}
     name = f"soak_{mode}" + (f"_{td}" if is_eval else "") \
         + ("_static" if static_grid else "")
-    with common.RssPeak() as rss, common.device_peak(dev, res), \
-            paths.path(name, runner), ChunkLog(runner, reader, dev) as log:
-        t0 = time.perf_counter()
-        if is_eval:
-            hist = np.asarray(evaluate_reader(runner, reader,
-                                              metrics.new_histogram()))
-        else:
-            save_survey_predictions_zarr(runner, reader, str(out),
-                                         preload_n_pings=preload_n_pings)
-        common.synchronize(dev)
-        wall = time.perf_counter() - t0
+    # the RSS is sampled around the call alone, whose wall it times: its
+    # peak then falls inside that wall
+    with common.device_peak(dev, res), paths.path(name, runner), \
+            ChunkLog(runner, reader, dev) as log:
+        with common.RssPeak() as rss:
+            if is_eval:
+                hist = np.asarray(evaluate_reader(runner, reader,
+                                                  metrics.new_histogram()))
+            else:
+                save_survey_predictions_zarr(
+                    runner, reader, str(out),
+                    preload_n_pings=preload_n_pings)
+            common.synchronize(dev)
+        wall = rss.wall_s
     res.update(wall_s=wall, pings_per_sec=n_pings / wall,
                rss_before_bytes=rss.before, rss_peak_bytes=rss.peak,
                rss_delta_bytes=rss.delta_bytes, rss_peak_s=rss.peak_s,
@@ -303,6 +306,20 @@ def chunk_lines(res, every=1) -> list:
     return lines
 
 
+def timer_lines(res) -> list:
+    """The run's ``PhaseTimer`` summary as text: each phase's wall, its
+    threads' CPU and its count, each counter's sum."""
+    lines = []
+    for name, st in sorted(res["timers"].items()):
+        if "count" in st:
+            lines.append(f"  {name:16s} count {st['count']}  n={st['n']}")
+        else:
+            lines.append(f"  {name:16s} total {st['total_s']:8.3f}s  "
+                         f"n={st['n']}" + (f"  cpu {st['cpu_s']:8.3f}s"
+                                           if "cpu_s" in st else ""))
+    return lines
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--build-fixture"]:
@@ -348,9 +365,7 @@ def main(argv=None):
     res["arms"] = [{"label": label, **{k: r[k] for k in (
         "n_pings", "static_grid", "rss_before_bytes", "rss_delta_bytes",
         "pings_per_sec", "forward_shapes")}} for label, r in runs]
-    for name, st in sorted(res["timers"].items()):
-        print(f"  {name:16s} total {st['total_s']:8.3f}s  n={st['n']}",
-              flush=True)
+    print("\n".join(timer_lines(res)), flush=True)
     common.finish(res, args.out)
 
 

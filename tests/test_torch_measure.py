@@ -14,7 +14,8 @@ import torch
 from crimac_unet_tpu.utils import flops as jax_flops
 from crimac_unet_tpu_torch.models.unet import build_unet
 from crimac_unet_tpu_torch.utils import flops as F
-from crimac_unet_tpu_torch.utils.profiling import (annotate, device_op_table,
+from crimac_unet_tpu_torch.utils.general import PhaseTimer
+from crimac_unet_tpu_torch.utils.profiling import (device_op_table,
                                                    device_trace,
                                                    print_device_op_table)
 from crimac_unet_tpu_torch.utils.timing import burst_time
@@ -124,8 +125,9 @@ def test_device_trace_writes_a_trace_on_cpu(tmp_path, monkeypatch, capsys):
         with device_trace(enabled=True):
             pass
     monkeypatch.setenv("CRIMAC_PROFILE_DIR", str(tmp_path / "prof"))
-    with device_trace() as d:
-        with annotate("crimac-test-region"):
+    timer = PhaseTimer()
+    with device_trace(timer=timer) as d:
+        with timer.phase("crimac-test-region"):
             torch.ones(64).sum()
     assert d == str(tmp_path / "prof")
     files = list((tmp_path / "prof").glob("*.pt.trace.json.gz"))

@@ -92,8 +92,12 @@ def test_predict_matches_jax(surveys, variables, tmp_path, transfer,
         runner, reader, str(tmp_path / "port.npy"), 150))
     assert got.shape == (2, H, W)
     _assert_close_f16(got, want)
-    # the chunk grid: 2 chunks of 3 x 4 patches, fwd_batch 8 -> 2 x 8
-    assert runner.patches_processed == 24 and runner.forwards == 4
+    # the chunk grid: 2 chunks of 3 x 4 patches, fwd_batch 8 -> 2 x 8,
+    # 4 of them pad
+    px = cfg["patch_size"][0] * cfg["patch_size"][1]
+    assert runner.timer.totals["n_fwd_px"] == 32 * px
+    assert runner.timer.totals["n_pad_px"] == 8 * px
+    assert runner.forwards == 4
 
 
 def test_seabed_and_heave_labels_bit_equal(surveys):

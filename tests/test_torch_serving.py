@@ -128,7 +128,7 @@ def test_slab_memm_matches_jax(surveys, variables, tmp_path, transfer):
         PRELOAD))
     _assert_close_f16(got, want)
     # one whole-chunk forward per chunk, no patches
-    assert runner.forwards == 2 and runner.patches_processed == 0
+    assert runner.forwards == 2 and runner.timer.counts["n_fwd_px"] == 2
 
 
 @pytest.mark.parametrize("transfer,output", [("float32", "float16"),

@@ -179,9 +179,12 @@ def test_slab_stream_memory_flat_in_survey_length(weights, surveys,
     # patch-start cache
     assert len(grids) == -(-n_pings // PRELOAD) == runner.forwards
     assert len(runner._col_starts) == 1 and not runner._grid_cache
-    assert set(runner.timer.totals) <= {
-        "device_wait", "d2h", "host_slab", "host_fill", "host_label",
-        "h2d_dispatch", "device_chunk", "zarr_write"}
+    phases = {"device_wait", "d2h", "host_slab", "host_fill", "host_label",
+              "h2d_dispatch", "device_chunk", "zarr_write", "pass_head",
+              "seabed_lookup", "static_grid_shape", "store_remove",
+              "wait_prefetch", "wait_writer"}
+    assert set(runner.timer.totals) <= phases | {
+        p + ".cpu" for p in phases} | {"n_fwd_px", "n_pad_px"}
 
     # the JAX package runs the same slab grids on the same survey
     jax_grids = _jax_grids(variables, sv[n_pings]["jax"])
@@ -223,6 +226,11 @@ def test_soak_reports_memory_per_chunk(weights, surveys):
         assert all(s[0] == 1 and s[-1] == 4 for s in r["forward_shapes"])
         lines = torch_soak50k.chunk_lines(r, 3)
         assert len(lines) == len(rows[::3]) + ((len(rows) - 1) % 3 > 0)
+        # the command line's timer table: phases and counters alike
+        lines = torch_soak50k.timer_lines(r)
+        assert len(lines) == len(r["timers"])
+        assert any("n_fwd_px" in ln and " count " in ln for ln in lines)
+        assert any("host_fill" in ln and " cpu " in ln for ln in lines)
     assert len(res[True]["forward_shapes"]) == 1
     np.testing.assert_array_equal(
         torch_soak50k.read_store(root / "soakTrue.zarr",

@@ -69,6 +69,10 @@ DIFFERENCES = {
     "models/fold_bn.py::fold_variables": (
         "models/fold_bn.py::fold_state_dict",
         "folds a flax variables tree; the port folds a state dict"),
+    "utils/profiling.py::annotate": (
+        "utils/general.py::PhaseTimer",
+        "a named region in traces: the timer's phases, which device_trace "
+        "writes into its trace as spans"),
     "utils/flops.py::compiled_flops": (
         "utils/flops.py::counted_flops",
         "reads XLA's cost analysis, which the card has no counterpart of; "

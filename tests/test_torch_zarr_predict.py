@@ -126,8 +126,12 @@ def test_predict_zarr_matches_jax(surveys, variables, tmp_path, transfer,
     _assert_stores_match(tmp_path / "port.zarr", tmp_path / "jax.zarr")
     assert ZGroup.open(tmp_path / "port.zarr")["annotation"].shape == \
         (2, W, H)
-    # 2 chunks of 4 grid columns x 3 grid rows, fwd_batch 8 -> 2 x 8
-    assert runner.patches_processed == 24 and runner.forwards == 4
+    # 2 chunks of 4 grid columns x 3 grid rows, fwd_batch 8 -> 2 x 8,
+    # 4 of them pad
+    px = cfg["patch_size"][0] * cfg["patch_size"][1]
+    assert runner.timer.totals["n_fwd_px"] == 32 * px
+    assert runner.timer.totals["n_pad_px"] == 8 * px
+    assert runner.forwards == 4
     assert runner.timer.summary()["zarr_write"]["n"] == 2
 
 
