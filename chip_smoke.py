@@ -39,8 +39,11 @@ raises and the script exits nonzero without its result line:
    every training batch B the paths run (K4 4, 8, 16, 32; K2 4, 16,
    32); each kernel called as its
    ``torch.ops.crimac.*`` operator, as an exported graph calls it, held
-   to its wrapper and its plain version; then the sample pools' gathers at
-   the training batch (4, 256, 256): ``ZarrSamplePool`` on the phase-13
+   to its wrapper and its plain version; B1's four kernels (the train
+   step's BatchNorm + ReLU) at level 0 and level 4 of the b16 step
+   (bfloat16; the sums within 1e-5 of their terms' magnitudes, the
+   output and dz bit-equal), timed against 1, 2, 2 and 3 passes; then
+   the sample pools' gathers at the training batch (4, 256, 256): ``ZarrSamplePool`` on the phase-13
    survey bit-equal to the host zarr crops (corners and every edge), and
    ``gather_meta_crops`` on the phase-12 survey within rtol 1e-5, atol
    1e-6 of the host ``crop_meta`` for the six families;
@@ -286,8 +289,10 @@ raises and the script exits nonzero without its result line:
 
 and then one JSON line naming every kernel with its phase-2 numbers
 (slab geometry included) and P1-P3 with their phase-22 numbers, its
-launches on the main path that runs it (K1-K3 phase 4, K4 phase 5, P1-P3
-the pool probe's timing run) and its launches on every path
+launches on the main path that runs it (K1-K3 phase 4, K4 phase 5, B1
+the training of phase 12, P1-P3 the pool probe's timing run; K1-K4 and
+B1 are listed when phases 2, 4, 5 and 12 ran) and its launches on every
+path
 (``launches_by_path``; ``tr``, ``tz``, ``tme`` and ``tml`` are the
 training runs of phases 12-14, ``ex``, ``exu``, ``es`` and ``em`` the
 patch, unfolded, slab and metadata artifacts of phase 15, ``ob``, ``oe``,
@@ -339,6 +344,16 @@ KERNELS = {
         source="crimac_unet_tpu_torch/csrc/closing.cu",
         replaces="crimac_unet_tpu/ops/pallas_morphology.py:60"),
 }
+# B1, the train step's BatchNorm + ReLU: four kernels, each launched once
+# a train-mode BatchNorm layer (4 x depth - 2 a step) on every training
+# path; its main path is training (phase 12), the plain versions the law
+# XLA runs for flax's nn.BatchNorm and the ReLU after it
+BN_KERNELS = ("bn_relu_stats", "bn_relu_apply", "bn_relu_grad_stats",
+              "bn_relu_grad_apply")
+KERNELS.update({k: dict(source="crimac_unet_tpu_torch/csrc/bn_relu.cu",
+                        replaces="crimac_unet_tpu/models/unet.py:69")
+                for k in BN_KERNELS})
+BN_LAYERS = 4 * 5 - 2         # train-mode BatchNorm layers at depth 5
 EVAL_CHUNK_COLS = 8           # evaluate_reader's column group
 TRAIN_ITERATIONS = 400        # phase 12: steps of the memm training path
 TRAIN_ITERATIONS_13_14 = 200  # phases 13-14 (one validation): the time
@@ -672,6 +687,101 @@ def phase_kernels(torch, cuda_lib, card, reader, cfg):
     results["binary_closing"] = phase_closing(torch, card, reader, cfg)
     phase_kernels_slab(torch, card, cfg, slabs, geom, border, per_elem,
                        results)
+    results.update(phase_kernels_bn_relu(torch, card))
+    return results
+
+
+def phase_kernels_bn_relu(torch, card):
+    """B1 (``ops/bn_relu.py``) at level 0 (1 048 576 x 64) and level 4
+    (4096 x 1024) of the b16 train step, bfloat16, each wrapper held to
+    its plain version: the statistics and the gradient sums within 1e-5
+    of the sum of their terms' magnitudes (float32 sums in another
+    order), the output, the running statistics and dz bit-equal given
+    the same statistics and sums.  Each timed beside its plain version
+    and its bytes bound (1, 2, 2 and 3 passes over the map).  Returns
+    {kernel: row}, level 0's numbers at the top, level 4's under
+    ``level_4``."""
+    from crimac_unet_tpu_torch.ops import bn_relu as bnr
+    dev = torch.device("cuda")
+    eps = 1e-5
+    results = {}
+    for level in (0, 4):
+        M, C = 16 * (256 >> level) ** 2, 64 << level
+        gen = torch.Generator(device=dev).manual_seed(SEED + level)
+        z = (torch.randn((M, C), generator=gen, device=dev) * 2 + .3).to(
+            torch.bfloat16)
+        d = torch.randn((M, C), generator=gen, device=dev).to(
+            torch.bfloat16)
+        w = torch.rand(C, generator=gen, device=dev) + .5
+        b = torch.rand(C, generator=gen, device=dev) - .5
+        rm = torch.rand(C, generator=gen, device=dev)
+        rv = torch.rand(C, generator=gen, device=dev) + .5
+        rm2, rv2 = rm.clone(), rv.clone()
+        where = f"({M}, {C}) bf16"
+
+        stats, want = bnr._STATS(z), bnr.stats_reference(z)
+        mag = torch.stack([want[1].sqrt(), want[1]])
+        errs = {"bn_relu_stats": ((stats - want).abs(), mag)}
+        y = bnr._APPLY(z, stats, w, b, rm, rv, eps)
+        check(torch.equal(y, bnr.apply_reference(z, stats, w, b, rm2, rv2,
+                                                 eps))
+              and torch.equal(rm, rm2) and torch.equal(rv, rv2),
+              f"bn_relu_apply != plain at {where}")
+        sums = bnr._GRAD_STATS(d, z, stats, w, b, eps)
+        want = bnr.grad_stats_reference(d, z, stats, w, b, eps)
+        mean, _, rstd, mul, _ = bnr._channels(stats, w, eps)
+        g, c = bnr._relu_grad(d, z, mean, mul, b)
+        mag = torch.stack([g.abs().sum(0), (g * c).abs().sum(0) * rstd])
+        errs["bn_relu_grad_stats"] = ((sums - want).abs(), mag)
+        del g, c
+        dz = bnr._GRAD_APPLY(d, z, stats, w, b, sums, eps, 1.0 / M)
+        check(torch.equal(dz, bnr.grad_apply_reference(
+            d, z, stats, w, b, sums, eps, 1.0 / M)),
+            f"bn_relu_grad_apply != plain at {where}")
+        for name, (err, mag) in errs.items():
+            check(bool(torch.all(err <= 1e-5 * mag)),
+                  f"{name} off its plain version by "
+                  f"{float((err / mag).max())} of the magnitude at {where}")
+        torch.cuda.synchronize()
+
+        # (wrapper, plain version, passes over the map, float operations
+        # an element as the law writes them)
+        calls = {
+            "bn_relu_stats": (lambda: bnr._STATS(z),
+                              lambda: bnr.stats_reference(z), 1, 3),
+            "bn_relu_apply": (
+                lambda: bnr._APPLY(z, stats, w, b, rm, rv, eps),
+                lambda: bnr.apply_reference(z, stats, w, b, rm2, rv2, eps),
+                2, 4),
+            "bn_relu_grad_stats": (
+                lambda: bnr._GRAD_STATS(d, z, stats, w, b, eps),
+                lambda: bnr.grad_stats_reference(d, z, stats, w, b, eps),
+                2, 8),
+            "bn_relu_grad_apply": (
+                lambda: bnr._GRAD_APPLY(d, z, stats, w, b, sums, eps,
+                                        1.0 / M),
+                lambda: bnr.grad_apply_reference(d, z, stats, w, b, sums,
+                                                 eps, 1.0 / M), 3, 10)}
+        for name, (fn, plain, passes, flops) in calls.items():
+            bnd, by = bound_ms(passes * M * C * 2, flops * M * C)
+            err = float(errs[name][0].max()) if name in errs else 0.0
+            row = dict(shape=[M, C], max_abs_err=err,
+                       ms=cuda_ms(torch, fn), plain_ms=cuda_ms(torch, plain),
+                       bound_ms=bnd, bound_by=by, library_ms=None)
+            if level == 0:
+                results[name] = row
+            else:
+                results[name]["level_4"] = row
+            print(f"{name} {where}: "
+                  + ("bit-equal to plain" if name not in errs else
+                     f"within 1e-5 of the magnitude (max abs err {err})")
+                  + f"; kernel {row['ms']:.4f} ms "
+                  f"({bnd / row['ms']:.0%} of the bound), wrapper's host "
+                  f"time {host_ms(fn):.4f} ms a call, plain "
+                  f"{row['plain_ms']:.4f} ms, bound {bnd:.4f} ms ({by}, "
+                  f"{passes} passes) [{card}]")
+        del z, d, y, dz
+        torch.cuda.empty_cache()
     return results
 
 
@@ -2190,9 +2300,11 @@ def train_path(torch, cuda_lib, tmp, card, cfg, tag, pool_type):
           f"{tag}: pools {type(sp.pool).__name__}, "
           f"{type(sp.pool_val).__name__}, not both {pool_type.__name__}")
     check(len(upload_s) == 2, f"{tag}: {len(upload_s)} pool uploads")
+    n_bn = (4 * int(cfg.get("depth", 5)) - 2) * n_train
     check(counts["binary_closing"] == n_train + n_val
           and counts["maxpool2x2"] == n_val
-          and counts["relu_pool_skip"] == 0 and counts["gather_db"] == 0,
+          and counts["relu_pool_skip"] == 0 and counts["gather_db"] == 0
+          and all(counts[k] == n_bn for k in BN_KERNELS),
           f"{tag}: training launches {counts} for {n_train} train and "
           f"{n_val} validation steps")
     for name in ("best.msgpack", "last.msgpack"):
@@ -3958,7 +4070,7 @@ def _first_call_probe(torch, card, counts=None):
                   and ("gather_db" in seen) == predicts,
                   f"{name}: first calls held {seen}")
         else:
-            launched = {k for k in KERNELS if counts[name][k] > 0}
+            launched = {k for k in sites if counts[name][k] > 0}
             check(set(seen) == launched, f"{name}: first calls held "
                                          f"{seen}, launched {launched}")
         print(f"{name}: first call bit-equal to plain: "
@@ -3968,14 +4080,15 @@ def _first_call_probe(torch, card, counts=None):
 
 def _check_path_launches(paths):
     """K1 = K3 = forwards on every prediction path, K4 = K3 = sub-batches
-    on every evaluation path, K2 never (``fold_bn: true``)."""
+    on every evaluation path, K2 and B1 never (``fold_bn: true``; no
+    train-mode BatchNorm)."""
     for name, c in paths.items():
         k = ("gather_db" if name.startswith(PREDICT_PATHS)
              else "binary_closing")
         off = {"gather_db", "binary_closing"} - {k}
         check(c["forwards"] > 0 and c[k] == c["relu_pool_skip"]
               == c["forwards"] and c["maxpool2x2"] == 0
-              and all(c[o] == 0 for o in off),
+              and all(c[o] == 0 for o in (*off, *BN_KERNELS)),
               f"{name}: launches {c}")
 
 
@@ -4285,10 +4398,11 @@ def phase_where_time_goes(torch, cuda_lib, tmp, card, sv):
                r["fwd_bound_ms"] + r["bwd_bound_ms"]) for r in bwd["layers"]]
     _rows_within(f"training roofline, batch {WTG_BWD_BATCH}", brows)
     _rows_within(f"train-mode BatchNorm, batch {WTG_BWD_BATCH}",
-                 [(r["layer"] + " fwd", r["fwd_ms"], r["bound_pass_ms"])
+                 [(r["layer"] + " fwd", r["fwd_ms"], r["fwd_bound_ms"])
                   for r in bwd["bn_rows"]]
                  + [(r["layer"] + " fwd+bwd", r["fwdbwd_ms"],
-                     2 * r["bound_pass_ms"]) for r in bwd["bn_rows"]])
+                     r["fwd_bound_ms"] + r["bwd_bound_ms"])
+                    for r in bwd["bn_rows"]])
     _rows_within("SGD update", [("update", bwd["update_ms"],
                                  bwd["update_bound_ms"])])
     _bound(f"training roofline: K4 a full step ({bwd['step_steps']} "
@@ -4395,7 +4509,8 @@ def _recipe_checks(name, r):
                r["pooled_meta"], True)
     _launch_law(name, r["launches"], {
         "binary_closing": r["steps"] + r["val_steps"],
-        "maxpool2x2": r["val_steps"]})
+        "maxpool2x2": r["val_steps"],
+        **{k: BN_LAYERS * r["steps"] for k in BN_KERNELS}})
 
 
 def _hold_sub_batches(torch, card, reader, cfg, batches):
@@ -4544,8 +4659,10 @@ def phase_ab(torch, tmp, card, sv, ckpt, reader, cfg):
     for arm in ("host", "pooled", "staged"):
         _bound(f"pooled metadata {arm}: every loss finite",
                pm[f"{arm}_losses_finite"], pm[f"{arm}_losses_finite"], True)
+        n_steps = pm["warmup"] + pm["steps"]
         _launch_law(f"pooled metadata {arm}", paths.counts[f"meta_{arm}"],
-                    {"binary_closing": pm["warmup"] + pm["steps"]})
+                    {"binary_closing": n_steps,
+                     **{k: BN_LAYERS * n_steps for k in BN_KERNELS}})
         rates[f"metadata ms a step, {arm}"] = pm[f"{arm}_ms"]
 
     sg = torch_static_grid.run("cuda", work)
@@ -5028,6 +5145,7 @@ def main(argv=None) -> int:
             by_path["tr"], r = phase_train(torch, cuda_lib, tmp, card,
                                            TRAIN_ITERATIONS)
             rates.update(r)
+            launches.update({k: by_path["tr"][k] for k in BN_KERNELS})
         if 13 in phases:
             by_path["tz"], r = phase_zarr_train(torch, cuda_lib, tmp, card,
                                                 TRAIN_ITERATIONS_13_14)
@@ -5083,7 +5201,7 @@ def main(argv=None) -> int:
         if args.recipe:
             run_recipe(torch, tmp, args.recipe, args.recipe_dtype, card)
     rows = []
-    if phases >= {2, 4, 5}:
+    if phases >= {2, 4, 5, 12}:
         for name in KERNELS:
             check(launches.get(name, 0) > 0,
                   f"{name} was not launched on the main path")

@@ -21,7 +21,12 @@ per level (4 -> 64 -> ... -> 1024 at depth 5, ~31M parameters).
   statistics in float32 with the fast variance ``max(0, E[x^2] - E[x]^2)``
   (biased), running statistics ``0.9 * running + 0.1 * batch`` (flax's
   momentum 0.9), eps 1e-5; so the statistics mean the same in both
-  packages' checkpoints.
+  packages' checkpoints.  Every train-mode BatchNorm is followed by a
+  ReLU, and the two run as one autograd op, ``bn_relu_train``
+  (ops/bn_relu.py: hand-written CUDA kernels forward and backward on the
+  card, the plain PyTorch law on the CPU), held to ``_bn_train`` + ReLU,
+  the law kept here.  The conv bias stays in ``_conv``, added in the
+  compute dtype as flax adds it.
 * Metadata channels (``meta_channels``): early inject widens the input to
   ``len(frequencies) + get_in_channels(meta_channels)`` bands; late inject
   (``late_meta_inject``) runs the reference's per-pixel MLP over the
@@ -44,6 +49,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.bn_relu import BN_MOMENTUM, bn_relu_train
 from ..ops.pool import maxpool2x2, relu_pool_skip
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -63,13 +69,17 @@ def _bn(x, bn, dtype):
     return (y + bn.bias.view(1, -1, 1, 1)).to(dtype)
 
 
-BN_MOMENTUM = 0.9   # flax's: running = m * running + (1 - m) * batch
+def _bn_relu(x, bn, dtype):
+    """Eval BatchNorm and the ReLU after it."""
+    return torch.relu(_bn(x, bn, dtype))
 
 
 def _bn_train(x, bn, dtype, mesh=None):
     """flax's train-mode BatchNorm: batch statistics in float32 (mean and
     the fast biased variance), running statistics updated in place, the
-    normalization in float32 and cast back.
+    normalization in float32 and cast back.  The law that tests and
+    scripts/torch_roofline_bwd.py hold the train step's ``bn_relu_train``
+    (ops/bn_relu.py) to.
 
     Under a data mesh (parallel/mesh.py) the per-channel means and means
     of squares are averaged over the ranks (a differentiable sum over N)
@@ -175,15 +185,16 @@ class DownConv(nn.Module):
             nn.Conv2d(out_channels, out_channels, 3, padding=1),
             _norm(out_channels, use_bn), nn.ReLU())
 
-    def forward(self, x, dtype, pool_kernels: bool, norm=_bn):
+    def forward(self, x, dtype, pool_kernels: bool, bn_relu=_bn_relu):
         conv1, bn1, conv2, bn2 = (self.main[0], self.main[1], self.main[3],
                                   self.main[4])
-        x = torch.relu(norm(_conv(x, conv1, dtype), bn1, dtype))
-        y = norm(_conv(x, conv2, dtype), bn2, dtype)
+        x = bn_relu(_conv(x, conv1, dtype), bn1, dtype)
+        z = _conv(x, conv2, dtype)
         if pool_kernels and self.pooling and not self.use_bn:
-            pooled, skip = relu_pool_skip(_nhwc(y))
+            # BatchNorm folded into conv2: the kernel takes the raw output
+            pooled, skip = relu_pool_skip(_nhwc(z))
             return _nchw(pooled), _nchw(skip)
-        y = torch.relu(y)
+        y = bn_relu(z, bn2, dtype)
         if not self.pooling:
             return y, y
         if pool_kernels:
@@ -204,13 +215,13 @@ class UpConv(nn.Module):
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         self.bn2 = _norm(out_channels, use_bn)
 
-    def forward(self, from_down, from_up, dtype, norm=_bn):
+    def forward(self, from_down, from_up, dtype, bn_relu=_bn_relu):
         up = F.conv_transpose2d(from_up, self.upconv.weight.to(dtype), None,
                                 stride=2)
         up = up + self.upconv.bias.to(dtype).view(1, -1, 1, 1)
         x = torch.cat([up, from_down], dim=1)
-        x = torch.relu(norm(_conv(x, self.conv1, dtype), self.bn1, dtype))
-        return torch.relu(norm(_conv(x, self.conv2, dtype), self.bn2, dtype))
+        x = bn_relu(_conv(x, self.conv1, dtype), self.bn1, dtype)
+        return bn_relu(_conv(x, self.conv2, dtype), self.bn2, dtype)
 
 
 class MetaPostProcessing(nn.Module):
@@ -288,19 +299,19 @@ class UNet(nn.Module):
         return self._forward(x, meta, train=True, mesh=mesh)
 
     def _forward(self, x, meta, train: bool, mesh=None):
-        norm = _bn
+        bn_relu = _bn_relu
         if train:
-            def norm(y, bn, dtype):
-                return _bn_train(y, bn, dtype, mesh)
+            def bn_relu(y, bn, dtype):
+                return bn_relu_train(y, bn, mesh)
         x = _nchw(x.contiguous()).to(self.dtype)  # channels_last NCHW view
         encoder_outs = []
         for i, down in enumerate(self.down_convs):
             x, before_pool = down(x, self.dtype,
                                   pool_kernels=i == 0 and not train,
-                                  norm=norm)
+                                  bn_relu=bn_relu)
             encoder_outs.append(before_pool)
         for i, up in enumerate(self.up_convs):
-            x = up(encoder_outs[-(i + 2)], x, self.dtype, norm=norm)
+            x = up(encoder_outs[-(i + 2)], x, self.dtype, bn_relu=bn_relu)
         if self.late_meta_inject:
             m = self.post_processing_weights(meta, self.dtype)
             x = torch.cat([x, _nchw(m)], dim=1)

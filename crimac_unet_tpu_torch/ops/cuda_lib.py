@@ -46,7 +46,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 
 launches = {"gather_db": 0, "maxpool2x2": 0, "relu_pool_skip": 0,
             "binary_closing": 0, "pool_probe_nhwc": 0,
-            "pool_probe_lane128": 0, "pool_probe_packed": 0}
+            "pool_probe_lane128": 0, "pool_probe_packed": 0,
+            "bn_relu_stats": 0, "bn_relu_apply": 0, "bn_relu_grad_stats": 0,
+            "bn_relu_grad_apply": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -137,6 +139,7 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             L = ctypes.CDLL(str(build()))
             P, I = ctypes.c_void_p, ctypes.c_int
+            LL, F = ctypes.c_longlong, ctypes.c_float
             L.crimac_gather_db.argtypes = [P, I, I, I, I, P, P, I, I, I,
                                            I, I, I, I, I, I, P, I, P]
             L.crimac_maxpool2x2.argtypes = [P, P, I, I, I, I, I, I, P]
@@ -146,15 +149,34 @@ def lib() -> ctypes.CDLL:
             L.crimac_pool_probe_nhwc.argtypes = [P, P, I, I, I, I, P]
             L.crimac_pool_probe_lane128.argtypes = [P, P, I, I, I, P]
             L.crimac_pool_probe_packed.argtypes = [P, P, I, I, I, I, P]
+            L.crimac_bn_relu_stats.argtypes = [P, P, P, P, I, LL, I, I, I,
+                                               I, F, P]
+            L.crimac_bn_relu_apply.argtypes = [P, P, P, P, P, P, P, I, LL,
+                                               I, I, I, I, F, F, F, P]
+            L.crimac_bn_relu_grad_stats.argtypes = [P, P, P, P, P, P, P, P,
+                                                    I, LL, I, I, I, I, F, P]
+            L.crimac_bn_relu_grad_apply.argtypes = [P, P, P, P, P, P, P, I,
+                                                    LL, I, I, I, I, F, F, P]
             for fn in (L.crimac_gather_db, L.crimac_maxpool2x2,
                        L.crimac_relu_pool_skip, L.crimac_binary_closing,
                        L.crimac_pool_probe_nhwc, L.crimac_pool_probe_lane128,
-                       L.crimac_pool_probe_packed):
+                       L.crimac_pool_probe_packed, L.crimac_bn_relu_stats,
+                       L.crimac_bn_relu_apply, L.crimac_bn_relu_grad_stats,
+                       L.crimac_bn_relu_grad_apply):
                 fn.restype = I
             L.crimac_error_string.argtypes = [I]
             L.crimac_error_string.restype = ctypes.c_char_p
             _lib = L
     return _lib
+
+
+def vec_width(C: int, *tensors: torch.Tensor) -> int:
+    """8 channels per thread (16-byte bfloat16 accesses) where C and the
+    pointers allow it, else 1."""
+    if C % 8:
+        return 1
+    align = 8 * tensors[0].element_size()
+    return 8 if all(t.data_ptr() % align == 0 for t in tensors) else 1
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -43,15 +43,6 @@ def _check_int32(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} takes fewer than 2**31 elements")
 
 
-def _vec(C: int, *tensors: torch.Tensor) -> int:
-    """8 channels per thread (16-byte bfloat16 accesses) where C and the
-    pointers allow it, else 1."""
-    if C % 8:
-        return 1
-    align = 8 * tensors[0].element_size()
-    return 8 if all(t.data_ptr() % align == 0 for t in tensors) else 1
-
-
 def _pooled_like(x: torch.Tensor) -> torch.Tensor:
     B, H, W, C = x.shape
     return x.new_empty((B, H // 2, W // 2, C))
@@ -63,7 +54,7 @@ def _maxpool2x2_cuda(x: torch.Tensor) -> torch.Tensor:
     out = _pooled_like(x)
     err = cuda_lib.lib().crimac_maxpool2x2(
         x.data_ptr(), out.data_ptr(), cuda_lib.DTYPE_CODES[x.dtype], B, H, W,
-        C, _vec(C, x, out), cuda_lib.stream_of(x))
+        C, cuda_lib.vec_width(C, x, out), cuda_lib.stream_of(x))
     cuda_lib.check(err, "maxpool2x2")
     cuda_lib.launches["maxpool2x2"] += 1
     return out
@@ -76,8 +67,8 @@ def _relu_pool_skip_cuda(x: torch.Tensor):
     skip = torch.empty_like(x)
     err = cuda_lib.lib().crimac_relu_pool_skip(
         x.data_ptr(), pooled.data_ptr(), skip.data_ptr(),
-        cuda_lib.DTYPE_CODES[x.dtype], B, H, W, C, _vec(C, x, pooled, skip),
-        cuda_lib.stream_of(x))
+        cuda_lib.DTYPE_CODES[x.dtype], B, H, W, C,
+        cuda_lib.vec_width(C, x, pooled, skip), cuda_lib.stream_of(x))
     cuda_lib.check(err, "relu_pool_skip")
     cuda_lib.launches["relu_pool_skip"] += 1
     return pooled, skip

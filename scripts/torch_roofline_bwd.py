@@ -12,13 +12,17 @@ BatchNorm statistics) this times
 so t_bwd = t_fwdbwd - t_fwd per op, against the JAX script's analytic
 backward bound (a conv's dL/dx and dL/dw each cost the forward's FLOPs;
 bytes: read the cotangent, x and w, write dx and dw; a pool's backward
-moves twice its forward's bytes).  The BatchNorm rows time the port's
-own train-mode BatchNorm (``models/unet.py`` ``_bn_train``: float32
-batch statistics, running statistics updated, cast back) with its relu,
-forward and forward + backward, each pass against 6 bf16 passes over
-the map.  The pools take ``F.max_pool2d``'s autograd, as the training
-forward does (the kernels have no backward, as the Pallas ones have no
-VJP).  The update row times the port's optimizer step
+moves twice its forward's bytes).  The BatchNorm rows time the train
+step's BatchNorm + ReLU (``ops/bn_relu.py`` ``bn_relu_train``: float32
+batch statistics, running statistics updated, cast back, the ReLU; its
+kernels on the card), forward and forward + backward, against the bytes
+of its 8 passes over the map (forward: read it for the statistics, read
+it and write the output; backward: read the output's gradient and the
+map for the sums, read both again and write the map's gradient), and
+beside it the law it replaced (``models/unet.py`` ``_bn_train`` and
+``torch.relu`` in plain PyTorch ops).  The pools take
+``F.max_pool2d``'s autograd, as the training forward does (the kernels
+have no backward, as the Pallas ones have no VJP).  The update row times the port's optimizer step
 (``pipeline/engine.py`` ``make_optimizer``: ``torch.optim.SGD``,
 momentum 0.95) over the flagship's 31 044 227 float32 parameters with
 float32 gradients (read p, m, g, write p, m: 20 bytes a parameter).
@@ -81,16 +85,24 @@ def pool_fwdbwd(x, ct):
     return y, dx
 
 
-def bn_relu(x, bn, dtype):
-    """The port's train-mode BatchNorm (``_bn_train``: float32 batch
-    statistics, running statistics updated in place) and its relu."""
+def bn_relu(x, bn):
+    """The train step's BatchNorm + ReLU (``bn_relu_train``: float32 batch
+    statistics, running statistics updated in place, the output in
+    ``x``'s dtype, the compute dtype)."""
+    from crimac_unet_tpu_torch.ops.bn_relu import bn_relu_train
+    return bn_relu_train(x, bn)
+
+
+def bn_relu_law(x, bn):
+    """The law ``bn_relu`` replaced: ``_bn_train`` and its relu as plain
+    PyTorch ops, in ``x``'s dtype."""
     from crimac_unet_tpu_torch.models.unet import _bn_train
-    return torch.relu(_bn_train(x, bn, dtype))
+    return torch.relu(_bn_train(x, bn, x.dtype))
 
 
-def bn_fwdbwd(x, bn, dtype, ct):
-    """(y, dx, dgamma, dbeta) of ``bn_relu``."""
-    y = bn_relu(x, bn, dtype)
+def bn_fwdbwd(x, bn, ct, fn=bn_relu):
+    """(y, dx, dgamma, dbeta) of ``fn`` (``bn_relu`` or ``bn_relu_law``)."""
+    y = fn(x, bn)
     dx, dg, db = torch.autograd.grad(y, (x, bn.weight, bn.bias), ct)
     return y, dx, dg, db
 
@@ -223,22 +235,25 @@ def run(device="cuda", batch=8, size=256, depth=5, start_filts=64,
                 kind, xs[i % nset], ws[i % nset], bias, cts[i % nset]),
                 dev, n=n)
             if kind != "conv1":
-                # training convs also pay a BN(+relu) pass on the output
-                bn_by = 6 * b_ * oh * ow * co * el   # ~3 reads + 3 writes
-                t_bn_bound = bn_by / tc.HBM_BYTES_PER_S
+                # training convs also pay a BN + ReLU on the output: 3
+                # passes over it forward, 5 backward
+                t_pass = b_ * oh * ow * co * el / tc.HBM_BYTES_PER_S * 1e3
                 bn = nn.BatchNorm2d(co).to(dev)
                 nb = tc.copies(2 * b_ * oh * ow * co * el, dev)
                 xo = _sets(nb, lambda: grad_leaf(_randn(
                     (b_, co, oh, ow), dtype, dev, gen, channels_last=True)))
-                with torch.no_grad():
-                    t_bn_f, _ = tc.device_ms(lambda i: bn_relu(
-                        xo[i % nb], bn, dtype), dev, n=n)
-                t_bn_fb, _ = tc.device_ms(lambda i: bn_fwdbwd(
-                    xo[i % nb], bn, dtype, cts[0]), dev, n=n)
-                bn_rows.append(dict(
-                    layer=name, fwd_ms=t_bn_f, fwdbwd_ms=t_bn_fb,
-                    bwd_ms=max(t_bn_fb - t_bn_f, 0.0),
-                    bound_pass_ms=t_bn_bound * 1e3))
+                row = dict(layer=name, bound_pass_ms=t_pass,
+                           fwd_bound_ms=3 * t_pass, bwd_bound_ms=5 * t_pass)
+                for pre, fn in (("", bn_relu), ("law_", bn_relu_law)):
+                    with torch.no_grad():
+                        t_bn_f, _ = tc.device_ms(lambda i: fn(
+                            xo[i % nb], bn), dev, n=n)
+                    t_bn_fb, _ = tc.device_ms(lambda i: bn_fwdbwd(
+                        xo[i % nb], bn, cts[0], fn), dev, n=n)
+                    row.update({pre + "fwd_ms": t_bn_f,
+                                pre + "fwdbwd_ms": t_bn_fb,
+                                pre + "bwd_ms": max(t_bn_fb - t_bn_f, 0.0)})
+                bn_rows.append(row)
         elif kind == "pool":
             fl_b, by_b = 0, 2 * byts   # read y-grad + x, write dx
             t_bb = by_b / tc.HBM_BYTES_PER_S
@@ -266,10 +281,15 @@ def run(device="cuda", batch=8, size=256, depth=5, start_filts=64,
             f"{t_bf * 1e3 / max(t_f, 1e-9):5.0%} {t_bb * 1e3:8.4f}m "
             f"{t_b:8.4f}m {t_bb * 1e3 / max(t_b, 1e-9):5.0%}  {row['limit']}")
 
-    log("\n-- BN(+relu) train-mode rows (float32 statistics) --")
+    log("\n-- BN + ReLU train-mode rows (float32 statistics): bn_relu_train"
+        " | the plain-op law --")
     for r in bn_rows:
-        log(f"{r['layer']:<14} fwd {r['fwd_ms']:8.4f}m bwd "
-            f"{r['bwd_ms']:8.4f}m (bound/pass {r['bound_pass_ms']:7.4f}m)")
+        log(f"{r['layer']:<14} fwd {r['fwd_ms']:8.4f}m "
+            f"({r['fwd_bound_ms'] / max(r['fwd_ms'], 1e-9):4.0%}) bwd "
+            f"{r['bwd_ms']:8.4f}m "
+            f"({r['bwd_bound_ms'] / max(r['bwd_ms'], 1e-9):4.0%}) | law fwd "
+            f"{r['law_fwd_ms']:8.4f}m bwd {r['law_bwd_ms']:8.4f}m (bound "
+            f"fwd {r['fwd_bound_ms']:7.4f}m, bwd {r['bwd_bound_ms']:7.4f}m)")
 
     cfg = train_config(B, size, depth, start_filts, compute_dtype)
     state = train_model(cfg, dev)
@@ -289,7 +309,7 @@ def run(device="cuda", batch=8, size=256, depth=5, start_filts=64,
     sum_bn = sum(r["fwd_ms"] + r["bwd_ms"] for r in bn_rows)
     total = sum_f + sum_b + sum_bn + t_upd
     bound = (sum(r["fwd_bound_ms"] + r["bwd_bound_ms"] for r in rows)
-             + sum(2 * r["bound_pass_ms"] for r in bn_rows)
+             + sum(r["fwd_bound_ms"] + r["bwd_bound_ms"] for r in bn_rows)
              + t_upd_bound * 1e3)
     step_flops = B * unet_train_step_flops(H, W, depth=depth,
                                            start_filts=start_filts)

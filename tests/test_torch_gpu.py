@@ -8,13 +8,18 @@ CUDA toolkit (tests/conftest.py imports JAX, hence ``--noconftest``):
 
 Stated tolerances: gather_db within one ulp of its output dtype (the same
 float32 arithmetic; log10f may round differently by one ulp), the pools
-bit-equal with equal NaN positions, the closing bit-equal.
+bit-equal with equal NaN positions, the closing bit-equal.  The
+train-mode BatchNorm + ReLU kernels against their plain versions run on
+the card: the statistics and the gradient sums within 1e-5 of the sum of
+their terms' magnitudes (float32 sums in another order), the output, the
+running statistics and dz bit-equal given the same statistics and sums.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from crimac_unet_tpu_torch.ops import bn_relu as bnr
 from crimac_unet_tpu_torch.ops import cuda_lib
 from crimac_unet_tpu_torch.ops.closing import (binary_closing,
                                                binary_closing_reference)
@@ -594,3 +599,126 @@ def test_two_gloo_ranks_on_the_card_step_like_one(cuda):
         run_two_process_check
     res = run_two_process_check(timeout=300, device="cuda")
     assert np.isfinite(res["loss"]) and res["checksum"] > 0
+
+
+def _unet_bn_shapes(B, size=256, depth=5, start_filts=64):
+    """The (M, C) rows of the flagship U-Net's train-mode BatchNorm layers,
+    one a level (each level has two encoder and two decoder layers, the
+    bottom level two)."""
+    return [(B * (size >> i) ** 2, start_filts << i) for i in range(depth)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [4, 16])
+def test_bn_relu_kernels_match_plain_at_unet_shapes(cuda, B, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    eps = 1e-5
+    for M, C in _unet_bn_shapes(B) + [(B * 37, 12)]:
+        z = (torch.randn((M, C), generator=gen, device=cuda) * 2 + .3
+             ).to(dtype)
+        d = torch.randn((M, C), generator=gen, device=cuda).to(dtype)
+        w = torch.rand(C, generator=gen, device=cuda) + .5
+        b = torch.rand(C, generator=gen, device=cuda) - .5
+        where = f"{B}: ({M}, {C}) {dtype}"
+        before = dict(cuda_lib.launches)
+
+        stats = bnr._STATS(z)
+        want = bnr.stats_reference(z)
+        scale = torch.stack([want[1].sqrt(), want[1]])
+        assert torch.all((stats - want).abs() <= 1e-5 * scale), where
+
+        rm, rv = torch.rand(C, device=cuda), torch.rand(C, device=cuda) + .5
+        rm2, rv2 = rm.clone(), rv.clone()
+        y = bnr._APPLY(z, stats, w, b, rm, rv, eps)
+        assert torch.equal(y, bnr.apply_reference(z, stats, w, b, rm2, rv2,
+                                                  eps)), where
+        assert torch.equal(rm, rm2) and torch.equal(rv, rv2), where
+
+        sums = bnr._GRAD_STATS(d, z, stats, w, b, eps)
+        want = bnr.grad_stats_reference(d, z, stats, w, b, eps)
+        mean, _, rstd, mul, _ = bnr._channels(stats, w, eps)
+        g, c = bnr._relu_grad(d, z, mean, mul, b)
+        mag = torch.stack([g.abs().sum(0), (g * c).abs().sum(0) * rstd])
+        assert torch.all((sums - want).abs() <= 1e-5 * mag), where
+
+        dz = bnr._GRAD_APPLY(d, z, stats, w, b, sums, eps, 1.0 / M)
+        assert torch.equal(dz, bnr.grad_apply_reference(
+            d, z, stats, w, b, sums, eps, 1.0 / M)), where
+        assert all(cuda_lib.launches[k] == before[k] + 1 for k in (
+            "bn_relu_stats", "bn_relu_apply", "bn_relu_grad_stats",
+            "bn_relu_grad_apply")), where
+
+
+@pytest.mark.gpu
+def test_bn_relu_train_gives_the_same_bits_twice(cuda):
+    """Forward and backward of one level-0 layer of a batch-16 step, twice:
+    no float atomics, so the same bits (the step's replay relies on it)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    z0 = torch.randn((16, 64, 256, 256), generator=gen, device=cuda).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    ct = torch.randn(z0.shape, generator=gen, device=cuda).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    out = []
+    for _ in range(2):
+        bn = torch.nn.BatchNorm2d(64).to(cuda)
+        z = z0.clone().requires_grad_(True)
+        y = bnr.bn_relu_train(z, bn)
+        y.backward(ct)
+        out.append((y.detach(), z.grad, bn.weight.grad, bn.bias.grad,
+                    bn.running_mean, bn.running_var))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_bn_relu_backward_of_a_channel_slice_cotangent(cuda):
+    """Level 0 of a batch-16 step under a late metadata inject: the op's
+    output goes into ``torch.cat([y, m], dim=1)``, whose backward hands
+    the op a channel slice of a (65-channel) channels_last gradient; the
+    kernels give the same bits as from that slice made dense."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    z0 = torch.randn((16, 64, 256, 256), generator=gen, device=cuda).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wide = torch.randn((16, 65, 256, 256), generator=gen, device=cuda).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    out = []
+    for ct in (wide, wide[:, :64].contiguous(
+            memory_format=torch.channels_last)):
+        bn = torch.nn.BatchNorm2d(64).to(cuda)
+        z = z0.clone().requires_grad_(True)
+        y = bnr.bn_relu_train(z, bn)
+        if ct is wide:
+            y = torch.cat([y, z0[:, :1]], dim=1)
+        y.backward(ct)
+        out.append((z.grad, bn.weight.grad, bn.bias.grad))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_train_step_launches_each_bn_relu_kernel_per_layer(cuda):
+    """One bfloat16 train step of the depth-5 U-Net at batch 16: each of
+    the four kernels launches once for each of its 18 BatchNorm layers."""
+    from crimac_unet_tpu_torch.models.unet import build_unet, init_train_
+    from crimac_unet_tpu_torch.pipeline import engine
+    cfg = {"patch_size": [64, 64], "depth": 5, "start_filts": 8,
+           "frequencies": [18, 38, 120, 200], "lr": 0.01,
+           "lr_reduction": 0.5, "lr_step": 250, "momentum": 0.95,
+           "compute_dtype": "bfloat16"}
+    rng = np.random.RandomState(3)
+    data = torch.from_numpy(rng.lognormal(np.log(3e-6), 1.5, (16, 4, 64, 64))
+                            .astype(np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.choice([0, 27, 1], (16, 64, 64)).astype(
+        np.int32)).to(cuda)
+    net = init_train_(build_unet(cfg), torch.Generator().manual_seed(0))
+    state = engine.init_train_state(net.to(cuda), cfg)
+    step = engine.make_train_step(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cuda_lib.reset_launches()
+    loss = float(step(state, data, labels, gen))
+    torch.cuda.synchronize()
+    assert np.isfinite(loss)
+    for k in ("bn_relu_stats", "bn_relu_apply", "bn_relu_grad_stats",
+              "bn_relu_grad_apply"):
+        assert cuda_lib.launches[k] == 18, (k, dict(cuda_lib.launches))

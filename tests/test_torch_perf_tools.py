@@ -206,9 +206,19 @@ def test_pool_backward_matches_jax_vjp():
 
 
 def test_bn_row_matches_jax_time_bn_pair(monkeypatch):
-    """The BatchNorm row's function (the port's ``_bn_train`` + relu)
+    """The BatchNorm row's function (the train step's ``bn_relu_train``)
     against ``roofline_bwd.time_bn_pair``'s ``bn``, taken from the first
     function that script hands its timer: forward and gradients."""
+    _bn_row_matches_jax(monkeypatch, torch_roofline_bwd.bn_relu)
+
+
+def test_bn_law_row_matches_jax_time_bn_pair(monkeypatch):
+    """The row of the law ``bn_relu_train`` replaced (``_bn_train`` +
+    relu in plain ops), held to the same JAX function."""
+    _bn_row_matches_jax(monkeypatch, torch_roofline_bwd.bn_relu_law)
+
+
+def _bn_row_matches_jax(monkeypatch, fn):
     captured = []
     monkeypatch.setattr(jax_roofline_bwd, "chain_time",
                         lambda fn, *a, **k: captured.append(fn) or 0.0)
@@ -227,7 +237,7 @@ def test_bn_row_matches_jax_time_bn_pair(monkeypatch):
         bn.weight.copy_(torch.from_numpy(g))
         bn.bias.copy_(torch.from_numpy(b))
     y, dx, dg, db = torch_roofline_bwd.bn_fwdbwd(_nchw(x, True), bn,
-                                                 torch.float32, _nchw(ct))
+                                                 _nchw(ct), fn)
     _close(_nhwc(y), y_j)
     _close(_nhwc(dx), dx_j)
     _close(dg.numpy(), dg_j)
