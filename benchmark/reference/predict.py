@@ -22,7 +22,8 @@ survey:
   codes;
 * patch mode: softmax of every patch, the ``overlap``-trimmed interiors
   tiled; slab mode: one forward over the grid padded with 0.0 to the
-  pooling alignment ``2 ** (depth - 1)``;
+  architecture's alignment (the U-Net's pooling alignment ``2 ** (depth -
+  1)``);
 * the write mask: a label that is finite, finite channel-0 sv, not (below
   the seabed + 10 rows and labelled background), above the grid's last
   data row; "below" is ``row >= seabed + 10`` for a memmap survey and
@@ -35,7 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import unet
+from .precision import exact_float32
 
 SEABED_PAD = 10
 NO_SEABED = 2 ** 30
@@ -52,9 +53,11 @@ def _ceil_div(a, b):
 
 
 class Geometry:
-    """The grid law of one configuration over one survey."""
+    """The grid law of one configuration over one survey; ``align`` is
+    the slab's alignment (slab mode only)."""
 
-    def __init__(self, cfg, n_range, n_pings, seabed, known, is_zarr):
+    def __init__(self, cfg, n_range, n_pings, seabed, known, is_zarr,
+                 align=None):
         self.wh, self.ww = cfg["patch_size"]
         self.o = int(cfg["patch_overlap"])
         self.sh, self.sw = self.wh - 2 * self.o, self.ww - 2 * self.o
@@ -63,7 +66,7 @@ class Geometry:
         self.sb_eff = np.where(known, np.asarray(seabed, np.int64), n_range)
         self.is_zarr = is_zarr
         self.slab = cfg.get("infer_mode", "patch") == "slab"
-        self.depth = int(cfg.get("depth", 5))
+        self.align = align
         self.splits = chunk_splits(n_pings, int(cfg["preload_n_pings"]))
         self.fixed = None
         if cfg.get("static_grid", False):
@@ -128,25 +131,26 @@ def net_input(g, ext, sv_block, transfer_dtype):
     return img
 
 
-def probabilities(g, ext, img, state, quant=None, batch=8):
+def probabilities(g, ext, img, state, forward, quant=None, batch=8):
     """(R*sh, C*sw, 2) [sandeel, other] probabilities in grid
-    coordinates."""
+    coordinates; ``forward(state, x, quant)`` is the architecture's
+    reference forward."""
     o, wh, ww, sh, sw = g.o, g.wh, g.ww, g.sh, g.sw
     R, C = ext["R"], ext["C"]
-    with torch.no_grad(), unet.exact_float32():
+    with torch.no_grad(), exact_float32():
         if g.slab:
-            p = 2 ** (g.depth - 1)
+            p = g.align
             H16, W16 = _ceil_div(ext["Hp"], p) * p, _ceil_div(ext["Wp"], p) * p
             x = torch.zeros((1, img.shape[0], H16, W16), device=img.device)
             x[0, :, :ext["Hp"], :ext["Wp"]] = img
-            prob = torch.softmax(unet.forward(state, x, g.depth, quant), 1)
+            prob = torch.softmax(forward(state, x, quant), 1)
             return prob[0, 1:3, o:o + R * sh, o:o + C * sw].permute(1, 2, 0)
         starts = [(i * sh, j * sw) for i in range(R) for j in range(C)]
         out = torch.empty((R * sh, C * sw, 2), device=img.device)
         for k in range(0, len(starts), batch):
             part = starts[k:k + batch]
             x = torch.stack([img[:, y:y + wh, c:c + ww] for y, c in part])
-            prob = torch.softmax(unet.forward(state, x, g.depth, quant), 1)
+            prob = torch.softmax(forward(state, x, quant), 1)
             for (y, c), pr in zip(part, prob):
                 out[y:y + sh, c:c + sw] = \
                     pr[1:3, o:wh - o, o:ww - o].permute(1, 2, 0)
@@ -175,16 +179,17 @@ def write_mask(g, ext, s, e, labels, sv0_finite):
     return keep
 
 
-def chunk_reference(g, survey, s, e, state, cfg, quant=None,
+def chunk_reference(g, survey, s, e, state, cfg, forward, quant=None,
                     device="cuda"):
     """(probabilities (2, n_range, e - s) float32 with 0 where not
     written, write mask (n_range, e - s) bool) of chunk [s, e) from the
-    raw survey: the reference, or with ``quant`` the control."""
+    raw survey through the architecture's reference ``forward``: the
+    reference, or with ``quant`` the control."""
     ext = g.chunk(s, e)
     block = survey.sv(ext["x0"], ext["x1"], ext["y1"])
     img = net_input(g, ext, torch.from_numpy(block).to(device),
                     cfg["transfer_dtype"])
-    prob = probabilities(g, ext, img, state, quant).cpu().numpy()
+    prob = probabilities(g, ext, img, state, forward, quant).cpu().numpy()
     w = e - s
     out = np.zeros((2, g.n_range, w), np.float32)
     h = min(prob.shape[0], g.n_range)

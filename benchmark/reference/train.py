@@ -1,6 +1,8 @@
 """Plain reference of the first training steps: crops from the raw memmap
-echograms, the train augmentation, the train label chain, the U-Net in
-train mode, the class-weighted cross entropy and SGD with momentum.
+echograms, the train augmentation, the train label chain, the
+architecture's reference forward in train mode (handed in by the cell, from
+the configuration's adapter), the class-weighted cross entropy and SGD
+with momentum.
 
 The laws are the reference pipeline's (CRIMAC-classifiers-unet
 batch/dataset.py, batch/transforms.py, the label and data transforms,
@@ -35,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import unet
+from .precision import exact_float32
 
 IGNORE = -100
 REFINE = -30
@@ -129,11 +131,12 @@ def weighted_ce(logits, labels):
     return (nll * w).sum() / w.sum().clamp(min=1e-12)
 
 
-def run_steps(state, batches, gen, cfg, depth, quant=None):
+def run_steps(state, batches, gen, cfg, forward, quant=None):
     """Follow the first ``len(batches)`` training steps from ``state``
     (float32 leaves, copied); each batch is (data (B, C, H, W) raw sv,
-    labels (B, H, W)) on the device.  Returns (losses, the gradients of
-    the first step, the parameters after the last)."""
+    labels (B, H, W)) on the device.  ``forward(state, x, quant, mode)``
+    is the architecture's reference forward.  Returns (losses, the
+    gradients of the first step, the parameters after the last)."""
     params = {k: v.detach().clone().float() for k, v in state.items()
               if not k.endswith(("running_mean", "running_var",
                                  "num_batches_tracked"))}
@@ -146,8 +149,8 @@ def run_steps(state, batches, gen, cfg, depth, quant=None):
         labels = train_labels(data, labels)
         x, labels = step_inputs(data, labels)
         leaves = {k: v.requires_grad_(True) for k, v in params.items()}
-        with unet.exact_float32():
-            logits = unet.forward(leaves, x, depth, quant, bn_mode="train")
+        with exact_float32():
+            logits = forward(leaves, x, quant, "train")
             loss = weighted_ce(logits, labels)
             grads = torch.autograd.grad(loss, list(leaves.values()))
         losses.append(loss.item())

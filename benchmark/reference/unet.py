@@ -13,29 +13,16 @@ configurations state.
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 
+from .precision import exact_float32
+
 BN_EPS = 1e-5
 FP8_MAX = 448.0
 FIRST_BN = "down_convs.0.main.1"
-
-
-@contextlib.contextmanager
-def exact_float32():
-    """TF32 off for matmuls and cuDNN convolutions, restored after."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
 
 
 def layout(depth=5, start_filts=64, in_channels=4, n_classes=3):

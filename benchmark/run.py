@@ -7,8 +7,11 @@ Run from the root of a checkout on a machine with an NVIDIA card.  The
 cell's configuration, traffic and metrics are found by name:
 ``BENCHMARK.json`` lists the cells and metrics,
 ``benchmark/workloads/<cell>.json`` holds a cell's traffic and the limits
-of its check, ``benchmark/configs/<config>.json`` the frozen preset, and
-``benchmark/metrics/<metric>.py`` the reader of a per-layer metric.
+of its check, ``benchmark/configs/<config>.json`` the frozen preset,
+``benchmark/architectures/<name>.py`` the adapter of the architecture the
+preset names (``unet`` where it names none: its docstring holds the
+contract), and ``benchmark/metrics/<metric>.py`` the reader of a
+per-layer metric.
 
 The run makes its inputs and weights from ``--seed``, warms up, measures
 for ``--seconds`` (``--trace 0``: the cell's end-to-end metrics) or
@@ -30,6 +33,7 @@ import importlib  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import re  # noqa: E402
 import shutil  # noqa: E402
 import sys  # noqa: E402
 
@@ -81,13 +85,29 @@ def metrics_of(bench, name, trace):
             if "workloads" not in m or name in m["workloads"]]
 
 
-def load_reader(metric, root=ROOT):
-    path = os.path.join(root, "benchmark", "metrics", metric + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + metric.replace(".", "_"), path)
+def _load_file(path, module_name):
+    spec = importlib.util.spec_from_file_location(module_name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(metric, root=ROOT):
+    path = os.path.join(root, "benchmark", "metrics", metric + ".py")
+    return _load_file(path, "bench_metric_" + metric.replace(".", "_")).read
+
+
+def load_architecture(cfg, root=ROOT):
+    """The adapter module of the architecture ``cfg`` names."""
+    name = cfg.get("architecture", "unet")
+    if not re.fullmatch(r"[A-Za-z0-9_]+", name):
+        raise SystemExit(f"bench: architecture {name!r} is not a plain "
+                         "name (letters, digits, _)")
+    path = os.path.join(root, "benchmark", "architectures", name + ".py")
+    if not os.path.isfile(path):
+        raise SystemExit(f"bench: the configuration names architecture "
+                         f"{name!r}, and {path} does not exist")
+    return _load_file(path, "bench_architecture_" + name)
 
 
 def forbidden_modules():
@@ -183,6 +203,7 @@ def run_cell(bench, name, seed, seconds, trace, device="cuda",
     work = dict(work, **overrides.get("workload", {}))
     cfg = dict(cfg, **overrides.get("config", {}))
     cfg["device"] = device
+    arch = load_architecture(cfg, root)
     kind = work["kind"]
     data_seed, weight_seed, rng = _seeds(seed)
     run_dir = os.path.join(WORK, "run", name)
@@ -200,7 +221,7 @@ def run_cell(bench, name, seed, seconds, trace, device="cuda",
           "(not counted in setup_s)", file=sys.stderr)
 
     gen = torch.Generator(device=device).manual_seed(weight_seed)
-    cell = cells.build(cfg, work, input_path, gen, device, rng)
+    cell = cells.build(cfg, work, input_path, gen, device, rng, arch)
     if fault is not None:
         fault(cell)
     cell.warm_up(run_dir)

@@ -61,12 +61,13 @@ def tiny_run(tmp_path, monkeypatch):
     bench = run.load_bench()
 
     def go(cell, seed, trace=0, fault=None, control=False, limits=None,
-           workload=None, seconds=0.5):
+           workload=None, seconds=0.5, config=None, root=run.ROOT):
         work = dict(tiny_workload(cell), **(workload or {}))
         if limits is not None:
             work["limits"] = limits
         return run.run_cell(bench, cell, seed, seconds, trace, device="cpu",
-                            overrides={"config": TINY_CONFIG,
+                            overrides={"config": dict(TINY_CONFIG,
+                                                      **(config or {})),
                                        "workload": work},
-                            fault=fault, control=control)
+                            fault=fault, control=control, root=root)
     return go

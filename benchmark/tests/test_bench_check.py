@@ -68,7 +68,9 @@ def test_train_reference_repeats_and_biases_under_bn_get_no_gradient():
 
     def once():
         gen = torch.Generator().manual_seed(4)
-        return ref_train.run_steps(state, [(data, labels)] * 2, gen, cfg, 2)
+        return ref_train.run_steps(
+            state, [(data, labels)] * 2, gen, cfg,
+            lambda s, x, q, mode: unet.forward(s, x, 2, q, bn_mode=mode))
 
     (l1, g1, p1), (l2, g2, p2) = once(), once()
     assert l1 == l2

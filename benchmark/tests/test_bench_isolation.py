@@ -3,6 +3,7 @@ or the JAX package crimac_unet_tpu (compared whole: the port's name
 begins with the JAX package's), and the reference nothing of the port."""
 
 import json
+import os
 import subprocess
 import sys
 
@@ -35,7 +36,8 @@ def _top_level(imports):
     "import crimac_unet_tpu_torch.pipeline.predict\n"
     "import crimac_unet_tpu_torch.pipeline.train\n"
     "import crimac_unet_tpu_torch.data.zarr_reader\n"
-    "for m in r.load_bench()['per_layer']: r.load_reader(m['name'])",
+    "for m in r.load_bench()['per_layer']: r.load_reader(m['name'])\n"
+    "r.load_architecture({})",
     "import benchmark.control",
 ], ids=["run", "control"])
 def test_harness_loads_no_jax(imports):
@@ -44,9 +46,22 @@ def test_harness_loads_no_jax(imports):
 
 def test_reference_loads_nothing_of_the_program():
     mods = _top_level("import benchmark.reference.unet, "
+                      "benchmark.reference.precision, "
                       "benchmark.reference.predict, "
                       "benchmark.reference.train, "
                       "benchmark.reference.surveys")
+    assert not mods & (FORBIDDEN | {"crimac_unet_tpu_torch"})
+
+
+@pytest.mark.parametrize("name", sorted(
+    f[:-3] for f in os.listdir(os.path.join(ROOT, "benchmark",
+                                            "architectures"))
+    if f.endswith(".py")))
+def test_architecture_adapter_loads_nothing_of_the_program(name):
+    """An adapter imports the program only inside ``program``: loading it
+    loads no module of the port."""
+    mods = _top_level("import benchmark.run as r\n"
+                      f"r.load_architecture({{'architecture': {name!r}}})")
     assert not mods & (FORBIDDEN | {"crimac_unet_tpu_torch"})
 
 

@@ -11,6 +11,7 @@ is kept for the check.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -21,7 +22,6 @@ import torch
 
 from ..reference import predict as ref_predict
 from ..reference import surveys as ref_surveys
-from ..reference import unet as ref_unet
 from . import counts, generators
 from .zarr_plain import PlainArray
 
@@ -49,21 +49,29 @@ def reference_survey(spec, path):
             else ref_surveys.MemmSurvey(path))
 
 
+def geometry(cfg, survey, arch):
+    """The configuration's grid law over ``survey``."""
+    return ref_predict.Geometry(cfg, survey.n_range, survey.n_pings,
+                                survey.seabed, survey.known,
+                                isinstance(survey, ref_surveys.ZarrSurvey),
+                                arch.slab_alignment(cfg))
+
+
 class PredictCell:
     """Set-up, timed passes and the check of one prediction cell."""
 
-    def __init__(self, cfg, work, input_path, state, device, rng):
-        from crimac_unet_tpu_torch.models.unet import build_unet
+    def __init__(self, cfg, work, input_path, state, device, rng, arch):
         from crimac_unet_tpu_torch.pipeline.runner import GriddedRunner
 
         self.cfg, self.spec = cfg, work["survey"]
-        self.work, self.state = work, state
+        self.work, self.state, self.arch = work, state, arch
         self.zarr = self.spec["format"] == "zarr"
         self.input_path = input_path
         self.device = device
         self.rng = rng
         self.runner = GriddedRunner(
-            build_unet(cfg), {k: v.detach().cpu() for k, v in state.items()},
+            arch.program(cfg),
+            {k: v.detach().cpu() for k, v in state.items()},
             cfg, device=device)
         if self.zarr:
             from crimac_unet_tpu_torch.data.zarr_reader import DataReaderZarr
@@ -179,8 +187,9 @@ class PredictCell:
         useful FLOPs and kernel bytes of the passes traced."""
         survey = reference_survey(self.spec, self.input_path)
         passes = done // self.n_pings
-        by = kernel_bytes_per_pass(self.cfg, survey)
-        return {"flops": passes * useful_flops_per_pass(self.cfg, survey),
+        by = kernel_bytes_per_pass(self.cfg, survey, self.arch)
+        return {"flops": passes * useful_flops_per_pass(self.cfg, survey,
+                                                        self.arch),
                 "k1_bytes": passes * by["k1"], "k3_bytes": passes * by["k3"]}
 
     def attempted(self):
@@ -195,7 +204,8 @@ class PredictCell:
             torch.cuda.empty_cache()
 
     def judge(self, quant=None):
-        return judge(self, self.cfg, self.state, self.device, quant)
+        return judge(self, self.cfg, self.state, self.device, self.arch,
+                     quant)
 
     # ----------------------------------------------------------- check
     def _store_chunk(self, p, k):
@@ -249,24 +259,23 @@ def compare(prog, ref, keep, output_dtype):
 
 
 @torch.no_grad()
-def judge(cell, cfg, state, device, quant=None):
+def judge(cell, cfg, state, device, arch, quant=None):
     """The numbers compared over the cell's sampled chunks: the program's,
     or (``quant``) the control's, the reference put in the program's
     place at a lower precision."""
     survey = reference_survey(cell.spec, cell.input_path)
-    g = ref_predict.Geometry(cfg, survey.n_range, survey.n_pings,
-                             survey.seabed, survey.known,
-                             cell.spec["format"] == "zarr")
+    g = geometry(cfg, survey, arch)
+    forward = functools.partial(arch.forward, cfg)
     tot = {"gap_max": 0.0, "gap_sum": 0.0, "n": 0, "mask_errors": 0}
     for p, k in cell.samples():
         s, e = cell.splits[k]
         ref, keep = ref_predict.chunk_reference(g, survey, s, e, state, cfg,
-                                                device=device)
+                                                forward, device=device)
         if quant is None:
             prog = cell.program_chunk(p, k)
         else:
             ctl, _ = ref_predict.chunk_reference(g, survey, s, e, state,
-                                                 cfg, quant, device)
+                                                 cfg, forward, quant, device)
             prog = ref_predict.quantize_output(ctl, cfg["output_dtype"])
         part = compare(prog, ref, keep, cfg["output_dtype"])
         tot["gap_max"] = max(tot["gap_max"], part["gap_max"])
@@ -279,57 +288,45 @@ def judge(cell, cfg, state, device, quant=None):
             "pixels_compared": tot["n"]}
 
 
-def useful_flops_per_pass(cfg, survey):
-    """The forward FLOPs a pass needs by the configuration's grid law:
-    every patch of every chunk (patch mode), or every chunk's grid padded
-    to the pooling alignment (slab mode)."""
-    g = ref_predict.Geometry(cfg, survey.n_range, survey.n_pings,
-                             survey.seabed, survey.known,
-                             isinstance(survey, ref_surveys.ZarrSurvey))
-    model = dict(depth=g.depth, start_filts=int(cfg["start_filts"]))
-    total = 0
+def _pass_forwards(cfg, survey, arch):
+    """Each chunk of a pass as (its grid's extents, n, h, w): it runs n
+    forwards of (h, w) by the configuration's grid law, every patch
+    (patch mode) or the grid padded to the architecture's alignment (slab
+    mode)."""
+    g = geometry(cfg, survey, arch)
     for s, e in g.splits:
         ext = g.chunk(s, e)
         if g.slab:
-            p = 2 ** (g.depth - 1)
-            total += counts.unet_forward_flops(
-                -(-ext["Hp"] // p) * p, -(-ext["Wp"] // p) * p, **model)
+            p = g.align
+            yield ext, 1, -(-ext["Hp"] // p) * p, -(-ext["Wp"] // p) * p
         else:
-            total += ext["R"] * ext["C"] * counts.unet_forward_flops(
-                g.wh, g.ww, **model)
-    return total
+            yield ext, ext["R"] * ext["C"], g.wh, g.ww
 
 
-def kernel_bytes_per_pass(cfg, survey):
+def useful_flops_per_pass(cfg, survey, arch):
+    """The forward FLOPs a pass needs by the configuration's grid law."""
+    return sum(n * arch.forward_flops(cfg, h, w)
+               for _, n, h, w in _pass_forwards(cfg, survey, arch))
+
+
+def kernel_bytes_per_pass(cfg, survey, arch):
     """Bytes of K1 and K3 over a pass, by the grid law and the shapes
-    the configuration fixes."""
-    g = ref_predict.Geometry(cfg, survey.n_range, survey.n_pings,
-                             survey.seabed, survey.known,
-                             isinstance(survey, ref_surveys.ZarrSurvey))
+    the configuration fixes; no K3 bytes where the architecture runs no
+    K3."""
     C = len(cfg["frequencies"])
     item = {"uint8": 1, "bfloat16": 2, "float32": 4}[cfg["transfer_dtype"]]
-    f0 = int(cfg["start_filts"])
+    f0 = arch.k3_channels(cfg)
     k1 = k3 = 0
-    for s, e in g.splits:
-        ext = g.chunk(s, e)
-        if g.slab:
-            p = 2 ** (g.depth - 1)
-            H16 = -(-ext["Hp"] // p) * p
-            W16 = -(-ext["Wp"] // p) * p
-            k1 += counts.k1_bytes(ext["Hs"], ext["Wp"], C, item, 1, H16,
-                                  W16)
-            k3 += counts.k3_bytes(1, H16, W16, f0)
-        else:
-            n = ext["R"] * ext["C"]
-            k1 += counts.k1_bytes(ext["Hs"], ext["Wp"], C, item, n, g.wh,
-                                  g.ww)
-            k3 += counts.k3_bytes(n, g.wh, g.ww, f0)
+    for ext, n, h, w in _pass_forwards(cfg, survey, arch):
+        k1 += counts.k1_bytes(ext["Hs"], ext["Wp"], C, item, n, h, w)
+        if f0 is not None:
+            k3 += counts.k3_bytes(n, h, w, f0)
     return {"k1": k1, "k3": k3}
 
 
 def calibration_crops(survey, rng, device, n=4, size=256):
-    """``n`` crops of the survey's dB image at seeded places, for
-    :func:`reference.unet.calibrate_bn`."""
+    """``n`` crops of the survey's dB image at seeded places, for the
+    architecture's ``calibrate``."""
     import torch
     crops = []
     for _ in range(n):
@@ -341,17 +338,21 @@ def calibration_crops(survey, rng, device, n=4, size=256):
     return torch.stack(crops)
 
 
-def make_state(gen, survey, rng, cfg, device):
-    state = ref_unet.init_state(gen, device, int(cfg["depth"]),
-                                int(cfg["start_filts"]),
-                                len(cfg["frequencies"]))
+def make_state(gen, survey, rng, cfg, device, arch):
+    state = arch.init_state(cfg, gen, device)
     crops = calibration_crops(survey, rng, device,
                               size=int(cfg["patch_size"][0]))
-    return ref_unet.calibrate_bn(state, crops, int(cfg["depth"]))
+    return arch.calibrate(cfg, state, crops)
 
 
-def build(cfg, work, input_path, gen, device, rng):
-    """The cell, with weights made on ``device`` from ``gen``."""
+def build(cfg, work, input_path, gen, device, rng, arch):
+    """The cell, with weights made on ``device`` from ``gen`` by the
+    architecture's adapter ``arch``."""
+    if cfg.get("infer_mode", "patch") == "slab" and \
+            arch.slab_alignment(cfg) is None:
+        raise SystemExit(f"bench: {arch.__file__} gives no slab alignment, "
+                         "so its architecture has no slab mode, and the "
+                         "configuration asks for infer_mode slab")
     survey = reference_survey(work["survey"], input_path)
-    state = make_state(gen, survey, rng, cfg, device)
-    return PredictCell(cfg, work, input_path, state, device, rng)
+    state = make_state(gen, survey, rng, cfg, device, arch)
+    return PredictCell(cfg, work, input_path, state, device, rng, arch)

@@ -16,6 +16,7 @@ window, so the window holds training steps only.
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 
@@ -23,7 +24,6 @@ import numpy as np
 import torch
 
 from ..reference import train as ref_train
-from ..reference import unet as ref_unet
 from . import counts, generators
 from .predict_cell import sync
 
@@ -53,7 +53,7 @@ def _echograms(root, years):
 
 
 class TrainCell:
-    def __init__(self, cfg, work, input_path, gen, device, rng):
+    def __init__(self, cfg, work, input_path, gen, device, rng, arch):
         from crimac_unet_tpu_torch.data.dataset import BatchPrefetcher
         from crimac_unet_tpu_torch.data.partition import make_partition
         from crimac_unet_tpu_torch.parallel.prefetch import device_prefetch
@@ -68,11 +68,9 @@ class TrainCell:
             validation_surveys=list(spec["validation_years"]),
             use_device_pool=True)
         self.work, self.device, self.input_path = work, device, input_path
+        self.arch = arch
         self.B = int(cfg["batch_size"])
-        self.depth = int(cfg["depth"])
-        self.state = ref_unet.init_state(gen, device, self.depth,
-                                         int(cfg["start_filts"]),
-                                         len(cfg["frequencies"]))
+        self.state = arch.init_state(cfg, gen, device)
         self.aug_seed = int(rng.integers(2 ** 62))
         data_obj = make_partition(cfg)
         train_factory, _, readers_train, _ = make_datasets(cfg, data_obj)
@@ -155,9 +153,8 @@ class TrainCell:
 
     def layer_context(self, done):
         steps = done // self.B
-        return {"flops": counts.train_step_flops(
-                    self.B, *self.cfg["patch_size"], depth=self.depth,
-                    start_filts=int(self.cfg["start_filts"])) * steps,
+        return {"flops": self.arch.train_step_flops(
+                    self.cfg, self.B, *self.cfg["patch_size"]) * steps,
                 "k4_bytes": steps * counts.k4_bytes(
                     self.B, *self.cfg["patch_size"])}
 
@@ -209,12 +206,13 @@ class TrainCell:
         gradient's gap is a reading only, as neither the control nor a
         fault reads it far enough above the program to hold a limit."""
         batches = self.reference_batches()
+        forward = functools.partial(self.arch.forward, self.cfg)
 
         def follow(q):
             gen = torch.Generator(device=self.device).manual_seed(
                 self.aug_seed)
             return ref_train.run_steps(self.state, batches, gen, self.cfg,
-                                       self.depth, q)
+                                       forward, q)
 
         losses, grad1, params = follow(None)
         if quant is None:
@@ -239,5 +237,5 @@ class TrainCell:
         }
 
 
-def build(cfg, work, input_path, gen, device, rng):
-    return TrainCell(cfg, work, input_path, gen, device, rng)
+def build(cfg, work, input_path, gen, device, rng, arch):
+    return TrainCell(cfg, work, input_path, gen, device, rng, arch)
