@@ -26,7 +26,7 @@ import pickle
 import numpy as np
 
 from ..constants import DATA_BOUNDARY_VAL, LABEL_BOUNDARY_VAL
-from ..utils.grids import extract_crop_2d
+from ..utils.grids import crop_bounds, extract_crop_2d
 from .seabed import estimate_seabed_memmap
 
 
@@ -47,6 +47,38 @@ _MEMMAP_LRU_MAX = 512
 # data_memmaps is called from the predict/eval prefetch threads;
 # OrderedDict reorder + evict is not atomic under concurrent mutation
 _MEMMAP_LRU_LOCK = _threading.Lock()
+# the label block tables (Echogram.labels_any), built once by whichever
+# sampler thread asks first
+_BLOCKS_LOCK = _threading.Lock()
+# side of a label block, and the columns a block table is built from at once
+_BLOCK = 16
+_BLOCK_COLS = 256 * _BLOCK
+
+
+def _fish(labels) -> np.ndarray:
+    """Where a label read as ``crop_labels`` reads it (int16) is neither
+    0 nor the boundary fill."""
+    v = np.asarray(labels).astype(np.int16)
+    return (v != 0) & (v != LABEL_BOUNDARY_VAL)
+
+
+def _block_table(labels) -> np.ndarray:
+    """Summed-area table of the ``_BLOCK``-square blocks of a (H, W)
+    label array that hold a :func:`_fish` pixel (the last row and column
+    of blocks cut short by the array's edge)."""
+    H, W = labels.shape
+    hb, wb = -(-H // _BLOCK), -(-W // _BLOCK)
+    blocks = np.zeros((hb, wb), np.int32)
+    for x in range(0, W, _BLOCK_COLS):
+        part = np.zeros((hb * _BLOCK, _BLOCK_COLS), bool)
+        cols = min(_BLOCK_COLS, W - x)
+        part[:H, :cols] = _fish(labels[:, x:x + cols])
+        n = -(-cols // _BLOCK)
+        blocks[:, x // _BLOCK:x // _BLOCK + n] = part.reshape(
+            hb, _BLOCK, -1, _BLOCK).any(axis=(1, 3))[:, :n]
+    table = np.zeros((hb + 1, wb + 1), np.int32)
+    table[1:, 1:] = blocks.cumsum(0).cumsum(1)
+    return table
 
 
 def _matlab_time_to_datetime(t: float):
@@ -100,6 +132,7 @@ class Echogram:
         # e.g. "2017843-D20170427-T062615" (reference data_reader.py:73)
         self.year = int(self.name[9:13])
         self._seabed = None
+        self._blocks = None   # labels_any's block table, built on first use
 
         # metadata-channel source vectors (reference data_reader.py:56-100)
         self.portion_of_day_vector = self.time_vector % 1
@@ -274,6 +307,47 @@ class Echogram:
             center[0] = self.shape[0] // 2
         return extract_crop_2d(self.label_memmap(), center, window,
                                LABEL_BOUNDARY_VAL).astype(np.int16)
+
+    def labels_any(self, center, window) -> bool:
+        """Whether ``crop_labels(center, window)`` holds a label other
+        than 0 and the boundary fill, read without cutting the crop: the
+        whole label blocks inside the window from a summed-area table
+        (built once an echogram), the strips around them from the
+        labels.  The rejection test of the Background sampler, which
+        draws up to 200 candidate windows a sample."""
+        center = list(center)
+        if self.shape[0] <= window[0]:
+            center[0] = self.shape[0] // 2
+        (y0, x0), (y1, x1) = crop_bounds(center, window)
+        H, W = self.shape
+        y0, x0, y1, x1 = max(int(y0), 0), max(int(x0), 0), \
+            min(int(y1), H), min(int(x1), W)
+        if y1 <= y0 or x1 <= x0:
+            return False
+        # the whole blocks inside [y0, y1) x [x0, x1): a block cut short
+        # by the array's edge is whole where the window reaches that edge
+        by0, bx0 = -(-y0 // _BLOCK), -(-x0 // _BLOCK)
+        by1 = -(-y1 // _BLOCK) if y1 == H else y1 // _BLOCK
+        bx1 = -(-x1 // _BLOCK) if x1 == W else x1 // _BLOCK
+        labels = self.label_memmap()
+        if by1 <= by0 or bx1 <= bx0:
+            return bool(_fish(labels[y0:y1, x0:x1]).any())
+        t = self._label_blocks()
+        if t[by1, bx1] - t[by0, bx1] - t[by1, bx0] + t[by0, bx0]:
+            return True
+        ry0, rx0 = by0 * _BLOCK, bx0 * _BLOCK
+        ry1, rx1 = min(by1 * _BLOCK, H), min(bx1 * _BLOCK, W)
+        strips = ((y0, ry0, x0, x1), (ry1, y1, x0, x1),
+                  (ry0, ry1, x0, rx0), (ry0, ry1, rx1, x1))
+        return any(bool(_fish(labels[a:b, c:d]).any())
+                   for a, b, c, d in strips if b > a and d > c)
+
+    def _label_blocks(self):
+        if self._blocks is None:
+            with _BLOCKS_LOCK:
+                if self._blocks is None:
+                    self._blocks = _block_table(self.label_memmap())
+        return self._blocks
 
 
 def get_echograms(years="all", path_to_echograms=None,

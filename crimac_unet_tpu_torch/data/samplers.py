@@ -27,7 +27,6 @@ import logging
 
 import numpy as np
 
-from ..constants import LABEL_BOUNDARY_VAL
 from ..utils.grids import random_point_containing
 
 _MAX_RETRIES = 200
@@ -85,10 +84,10 @@ class Background:
     def get_sample(self, rng):
         for _ in range(_MAX_RETRIES):
             (y, x), ech = self._candidate(rng)
-            labels = ech.crop_labels([y, x], self.window_size)
             # reference reads with boundary fill 0 and rejects any nonzero
-            # label (background.py:57-61); our crop fills boundary with -100
-            if not np.any((labels != 0) & (labels != LABEL_BOUNDARY_VAL)):
+            # label (background.py:57-61); our crop fills boundary with
+            # -100, which labels_any does not count
+            if not ech.labels_any([y, x], self.window_size):
                 return [y, x], ech
         _note_give_up(self, "every candidate crop contained fish labels")
         return [y, x], ech

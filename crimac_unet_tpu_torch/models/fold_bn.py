@@ -10,7 +10,10 @@ weight and bias:
 
 Same float32 arithmetic and the same serving policy as the JAX package's
 ``crimac_unet_tpu/models/fold_bn.py`` (``fold_for_serving``:69), on the
-reference state-dict layout (conv weights ``(O, I, kh, kw)``).
+reference state-dict layout (conv weights ``(O, I, kh, kw)``).  The
+SegFormer (models/segformer.py) has one BatchNorm, after its decode
+head's fuse conv, which has no bias: the folded conv gets ``c`` as its
+bias.
 """
 
 from __future__ import annotations
@@ -22,9 +25,13 @@ _DOWN_UNITS = (("main.0", "main.1"), ("main.3", "main.4"))
 _UP_UNITS = (("conv1", "bn1"), ("conv2", "bn2"))
 _BN_FIELDS = ("weight", "bias", "running_mean", "running_var",
               "num_batches_tracked")
+_SEGFORMER_PAIR = ("decode_head.linear_fuse", "decode_head.batch_norm")
 
 
 def _conv_bn_pairs(state_dict: dict):
+    if _SEGFORMER_PAIR[1] + ".running_var" in state_dict:
+        yield _SEGFORMER_PAIR
+        return
     depth = 1 + max(int(k.split(".")[1]) for k in state_dict
                     if k.startswith("down_convs."))
     for i in range(depth):
@@ -40,8 +47,8 @@ def has_batch_stats(state_dict: dict) -> bool:
 
 
 def fold_state_dict(state_dict: dict, eps: float = 1e-5) -> dict:
-    """State dict of a BN UNet -> state dict of the equivalent
-    ``use_bn=False`` UNet (BN entries dropped, folded into the convs)."""
+    """State dict of a BN model -> state dict of the equivalent
+    ``use_bn=False`` model (BN entries dropped, folded into the convs)."""
     if not has_batch_stats(state_dict):
         raise ValueError(
             "the checkpoint carries no BatchNorm running statistics — "
@@ -53,7 +60,8 @@ def fold_state_dict(state_dict: dict, eps: float = 1e-5) -> dict:
         c = state_dict[bn + ".bias"] - state_dict[bn + ".running_mean"] * g
         out[conv + ".weight"] = state_dict[conv + ".weight"] * g.view(
             -1, 1, 1, 1)
-        out[conv + ".bias"] = state_dict[conv + ".bias"] * g + c
+        bias = state_dict.get(conv + ".bias")
+        out[conv + ".bias"] = c if bias is None else bias * g + c
         for f in _BN_FIELDS:
             out.pop(f"{bn}.{f}", None)
     return out
@@ -70,8 +78,6 @@ def fold_for_serving(model, state_dict: dict, config) -> tuple:
       checkpoint must carry the running statistics either way.
     * BN-free model: the state dict as it is.
     """
-    from .unet import UNet
-
     if not model.use_bn:
         return model, state_dict
     if not has_batch_stats(state_dict):
@@ -80,6 +86,6 @@ def fold_for_serving(model, state_dict: dict, config) -> tuple:
             "this BN model — serve from a training checkpoint, or build "
             "the model with use_bn=False")
     if config.get("fold_bn", True):
-        folded = UNet(**dict(model.hparams, use_bn=False))
+        folded = type(model)(**dict(model.hparams, use_bn=False))
         return folded, fold_state_dict(state_dict)
     return model, state_dict

@@ -282,11 +282,25 @@ class UNet(nn.Module):
             outs += 1
         self.conv_final = nn.Conv2d(outs, n_classes, 1)
 
-    def forward(self, x, meta=None, mesh=None):
+    @property
+    def alignment(self) -> int:
+        """What slab mode pads a chunk's grid to a multiple of: the
+        ``depth - 1`` 2x2 pools' ``2**(depth-1)``."""
+        return 2 ** (self.depth - 1)
+
+    @property
+    def halo(self) -> int:
+        """Slab mode's ping-axis halo past a range's aligned ends
+        (:func:`slab_halo`, 96 at depth 5)."""
+        return slab_halo(self.depth)
+
+    def forward(self, x, meta=None, mesh=None, gen=None):
         """``x`` (B, H, W, C) NHWC; ``meta`` (B, H, W, M) NHWC metadata for
         late inject (early inject concatenates it into ``x``); ``mesh``
         (train mode) the data mesh whose global batch the BatchNorm
-        statistics are taken over (parallel/mesh.py)."""
+        statistics are taken over (parallel/mesh.py); ``gen`` the train
+        step's generator, which the U-Net, with no stochastic layer, does
+        not draw from."""
         if self.late_meta_inject and meta is None:
             raise ValueError("late_meta_inject requires meta input")
         if not self.training:

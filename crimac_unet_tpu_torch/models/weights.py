@@ -192,12 +192,15 @@ def read_msgpack_checkpoint(path) -> dict:
 
 
 def load_checkpoint(path) -> dict:
-    """Model weights as a reference state dict of CPU tensors: a reference
-    ``.pt`` state dict, or any other file as a flax msgpack checkpoint of
-    the JAX package (as its ``engine.load_checkpoint`` reads them)."""
+    """Model weights as a reference state dict of CPU tensors: a ``.pt``
+    file (a reference state dict, or the port's own checkpoint, whose
+    ``state_dict`` it returns: ``pipeline/engine.py``), or any other file
+    as a flax msgpack checkpoint of the JAX package (as its
+    ``engine.load_checkpoint`` reads them)."""
     path = str(path)
     if path.endswith(".pt"):
-        return torch.load(path, map_location="cpu", weights_only=True)
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        return sd["state_dict"] if "architecture" in sd else sd
     return to_tensors(flax_to_torch_state_dict(
         read_msgpack_checkpoint(path)))
 

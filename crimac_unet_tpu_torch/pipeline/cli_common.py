@@ -60,12 +60,12 @@ def load_eval_context(mode: str, argv=None, want_plots: bool = False,
         need_runner = bool(need_runner(config))
     runner = None
     if need_runner:
-        from ..models.unet import build_unet
+        from ..models import build_model
         from ..models.weights import load_checkpoint
         from ..parallel.mesh import init_distributed
         from .runner import GriddedRunner, resolve_device
         init_distributed(device=resolve_device(config.get("device")))
-        runner = GriddedRunner(build_unet(config),
+        runner = GriddedRunner(build_model(config),
                                load_checkpoint(config["checkpoint_path"]),
                                config, device=config.get("device"))
 

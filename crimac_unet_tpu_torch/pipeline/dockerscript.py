@@ -27,7 +27,7 @@ import time
 from ..config import load_yaml_config, parse_config_options
 from ..data import blosc_codec
 from ..data.zarr_reader import DataReaderZarr
-from ..models.unet import build_unet
+from ..models import build_model
 from ..models.weights import load_checkpoint
 from ..ops import cuda_lib
 from ..parallel.mesh import init_distributed
@@ -83,7 +83,7 @@ def main():
         config["frequencies"] = [f * 1000 for f in config["frequencies"]]
 
     init_distributed(device=resolve_device(config.get("device")))
-    runner = GriddedRunner(build_unet(config),
+    runner = GriddedRunner(build_model(config),
                            load_checkpoint(paths["model"]), config,
                            device=config.get("device"))
 

@@ -32,7 +32,12 @@ Checkpoints are the JAX package's flax msgpack files
 ``{"params", "batch_stats", "opt_state", "step"}`` with ``opt_state`` =
 optax's ``(TraceState(trace=<params tree>), ScaleByScheduleState(count))``
 as flax stores a tuple (``{"0": {"trace": ...}, "1": {"count": ...}}``),
-written atomically with the ``<path>.json`` sidecar first.  A step
+written atomically with the ``<path>.json`` sidecar first.  A ``.pt``
+path holds the port's own format instead, a ``torch.save`` of a
+TrainState's ``{"architecture", "state_dict", "momentum", "step"}`` (of
+plain weights: their state dict), the only one a SegFormer has (the JAX
+package has no SegFormer tree); ``models.weights.load_checkpoint`` reads
+both.  A step
 returns its loss as a device scalar and syncs nothing with the host.
 
 Under a data mesh (``mesh``, parallel/mesh.py) each rank runs a step on
@@ -60,8 +65,8 @@ import torch.nn.functional as F
 from ..constants import LABEL_IGNORE_VAL
 from ..data.device_pool import gather_crops, gather_meta_crops
 from ..data.meta_channels import get_in_channels
-from ..models import weights
-from ..models.unet import UNet, init_train_
+from ..models import init_train_, weights
+from ..models.segformer import SegFormer
 from ..models.weights import (flax_params_to_torch,
                               flax_to_torch_state_dict, to_tensors,
                               torch_to_flax_params, torch_to_flax_variables)
@@ -74,7 +79,7 @@ from ..utils import flax_msgpack
 class TrainState:
     """The model (its parameters and BatchNorm statistics), the SGD
     optimizer (its momentum buffers) and the count of updates taken."""
-    model: UNet
+    model: torch.nn.Module
     optimizer: torch.optim.SGD
     step: int = 0
 
@@ -88,18 +93,18 @@ def make_lr_schedule(config: dict):
     return lambda step: lr0 * rate ** (int(step) // every)
 
 
-def make_optimizer(model: UNet, config: dict) -> torch.optim.SGD:
+def make_optimizer(model: torch.nn.Module, config: dict) -> torch.optim.SGD:
     return torch.optim.SGD(model.parameters(), lr=float(config["lr"]),
                            momentum=float(config["momentum"]),
                            dampening=0.0, nesterov=False)
 
 
-def init_train_state(model: UNet, config: dict, gen=None,
+def init_train_state(model: torch.nn.Module, config: dict, gen=None,
                      state_dict=None) -> TrainState:
     """Fresh TrainState at step 0.  ``state_dict`` seeds the weights from
     imported ones (e.g. a reference ``.pt`` via ``load_checkpoint``);
-    otherwise ``gen`` (a ``torch.Generator``) draws torch's default
-    initialisation (``init_train_``), and with neither the model keeps
+    otherwise ``gen`` (a ``torch.Generator``) draws the model's training
+    initialisation (``models.init_train_``), and with neither the model keeps
     its current weights.  The momentum buffers start at zero either way
     (torch creates them at the first update as the gradient, which is
     optax's zero trace after one step)."""
@@ -235,6 +240,65 @@ def _model_input(config: dict):
     return inputs
 
 
+class StepGraph:
+    """A train step's forward, loss and backward as one CUDA graph.
+
+    Captured at the first call for a model and input shapes, replayed at
+    every call after: the host enqueues one launch where the eager step
+    enqueues each of the model's operators (SegFormer MiT-B2: ~3500 a
+    step, whose enqueue takes longer than the card's work).  The same
+    kernels on the same data, so the step computes what the eager step
+    does.  The capture warms up on a side stream first (workspaces, the
+    kernels' first builds) and then puts the model's buffers (BatchNorm's
+    running statistics) back, so they move once a call, as eagerly.  The
+    gradients are the graph's own tensors, handed to the parameters'
+    ``.grad`` at every call.  Host-side effects of the forward (profiler
+    ranges, ``attn_pairs``) happen at the capture only."""
+
+    WARM = 3
+
+    def __init__(self):
+        self.key = None
+
+    def __call__(self, model, loss_fn, x, labels):
+        key = (model, x.shape, x.dtype, labels.shape, labels.dtype)
+        if key != self.key:
+            self._capture(model, loss_fn, x, labels)
+            self.key = key
+        self.x.copy_(x)
+        self.labels.copy_(labels)
+        self.graph.replay()
+        for p, g in self.grads:
+            p.grad = g
+        return self.loss.clone()
+
+    def _capture(self, model, loss_fn, x, labels):
+        self.graph = self.grads = None
+        params = [p for p in model.parameters() if p.requires_grad]
+        saved = [b.clone() for b in model.buffers()]
+        self.x, self.labels = x.clone(), labels.clone()
+
+        def step():
+            loss = loss_fn(model(self.x), self.labels)
+            return loss, torch.autograd.grad(loss, params,
+                                             allow_unused=True)
+
+        side = torch.cuda.Stream(x.device)
+        side.wait_stream(torch.cuda.current_stream(x.device))
+        with torch.cuda.stream(side):
+            for _ in range(self.WARM):
+                step()
+        torch.cuda.current_stream(x.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        # other threads (the batch prefetch) go on using the device
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.loss, grads = step()
+        self.grads = list(zip(params, grads))
+        with torch.no_grad():
+            for b, s in zip(model.buffers(), saved):
+                b.copy_(s)
+
+
 def make_train_step(config: dict, mesh=None):
     """-> ``train_step(state, data, labels, gen, meta=None)``: data
     (B, C, H, W) raw sv float32, labels (B, H, W) raw int32 codes, ``gen``
@@ -242,11 +306,25 @@ def make_train_step(config: dict, mesh=None):
     metadata crops when the config has metadata channels.  Updates
     ``state`` in place and returns the loss (a device scalar).  Under a
     ``mesh`` the batch is this rank's rows of the global batch and the
-    loss returned is the global one."""
+    loss returned is the global one.  The model takes ``gen`` after the
+    augmentation for its stochastic layers (SegFormer's drop-path and
+    dropout; the U-Net has none).
+
+    ``train_graph: true`` runs the forward, loss and backward on a CUDA
+    device as one :class:`StepGraph` (elsewhere eagerly, the same step);
+    the augmentation, the label and data chains and the SGD update stay
+    eager.  It takes a single-device step without metadata channels, of
+    a model that draws no masks."""
+    use_meta = get_in_channels(config.get("meta_channels")) > 0
+    graph = None
+    if config.get("train_graph", False):
+        if mesh is not None or use_meta:
+            raise ValueError("train_graph takes a single-device train step "
+                             "without metadata channels")
+        graph = StepGraph()
     loss_fn = make_loss_fn(config, mesh)
     lr_at = make_lr_schedule(config)
     inputs = _model_input(config)
-    use_meta = get_in_channels(config.get("meta_channels")) > 0
     # the global batch's draws, this rank's rows
     shard = {} if mesh is None else {"shard": (mesh.rank, mesh.size)}
 
@@ -265,9 +343,16 @@ def make_train_step(config: dict, mesh=None):
         for group in opt.param_groups:
             group["lr"] = lr_at(state.step)
         x, m = inputs(data, meta)
-        loss = loss_fn(model(x, meta=m, mesh=mesh), labels)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
+        if graph is not None and getattr(model, "stochastic", False):
+            raise ValueError("train_graph takes a model that draws no masks:"
+                             " set drop_path_rate and "
+                             "classifier_dropout_prob to 0")
+        if graph is not None and x.is_cuda:
+            loss = graph(model, loss_fn, x, labels)
+        else:
+            loss = loss_fn(model(x, meta=m, mesh=mesh, gen=gen), labels)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
         all_reduce_grads_(model, mesh)
         opt.step()
         state.step += 1
@@ -374,6 +459,25 @@ def momentum_buffers(state: TrainState) -> dict:
     return out
 
 
+def _cpu(tree: dict) -> dict:
+    return {k: v.detach().cpu() for k, v in tree.items()}
+
+
+def torch_payload(state_or_vars) -> dict:
+    """The port's ``.pt`` checkpoint of a TrainState (architecture,
+    weights, momentum, step); plain weights are their state dict."""
+    if not isinstance(state_or_vars, TrainState):
+        return _cpu(state_or_vars)
+    return {"architecture": _model_architecture(state_or_vars.model),
+            "state_dict": _cpu(state_or_vars.model.state_dict()),
+            "momentum": _cpu(momentum_buffers(state_or_vars)),
+            "step": int(state_or_vars.step)}
+
+
+def _model_architecture(model) -> str:
+    return "segformer" if isinstance(model, SegFormer) else "unet"
+
+
 def checkpoint_payload(state: TrainState) -> dict:
     """The JAX package's TrainState checkpoint tree (numpy leaves)."""
     variables = torch_to_flax_variables(state.model.state_dict())
@@ -394,7 +498,8 @@ def save_checkpoint(path, state_or_vars, extras=None) -> None:
     (e.g. the best validation F1) goes to the
     ``<path>.json`` sidecar FIRST, so a crash between the two replaces
     pairs the old checkpoint with the new (>= actual) best-F1 high-water
-    mark, never a new checkpoint with a stale low one."""
+    mark, never a new checkpoint with a stale low one.  A ``.pt`` path
+    takes the port's own format (:func:`torch_payload`)."""
     path = str(path)
     d = os.path.dirname(path)
     if d:
@@ -403,7 +508,15 @@ def save_checkpoint(path, state_or_vars, extras=None) -> None:
         with open(path + ".json.tmp", "w") as f:
             json.dump(extras, f)
         os.replace(path + ".json.tmp", path + ".json")
+    if path.endswith(".pt"):
+        with open(path + ".tmp", "wb") as f:
+            torch.save(torch_payload(state_or_vars), f)
+        os.replace(path + ".tmp", path)
+        return
     if isinstance(state_or_vars, TrainState):
+        if isinstance(state_or_vars.model, SegFormer):
+            raise ValueError("a SegFormer checkpoint is the port's .pt "
+                             "file: the JAX package has no SegFormer tree")
         payload = checkpoint_payload(state_or_vars)
     elif "params" in state_or_vars:
         payload = {k: _numpy_tree(v) for k, v in state_or_vars.items()}
@@ -431,8 +544,39 @@ def load_checkpoint(path, template=None):
     it, as the JAX package restores into its template."""
     if template is None:
         return weights.load_checkpoint(path)
+    if str(path).endswith(".pt"):
+        return restore_torch_train_state(template, read_train_state(path))
     return restore_train_state(template,
                                weights.read_msgpack_checkpoint(path))
+
+
+def read_train_state(path):
+    """A ``.pt`` TrainState checkpoint of the port, or None where the file
+    is missing or holds weights alone (a reference state dict)."""
+    if not os.path.isfile(str(path)):
+        return None
+    payload = torch.load(str(path), map_location="cpu", weights_only=True)
+    return payload if "momentum" in payload else None
+
+
+def restore_torch_train_state(state: TrainState, payload) -> TrainState:
+    """Load the port's ``.pt`` TrainState checkpoint into ``state``."""
+    if payload is None:
+        raise ValueError("the .pt file holds no training state (weights "
+                         "alone): it cannot seed a TRAINING resume")
+    want = _model_architecture(state.model)
+    if payload["architecture"] != want:
+        raise ValueError(f"the checkpoint is a {payload['architecture']}'s;"
+                         f" the config builds a {want}")
+    dev = next(state.model.parameters()).device
+    state.model.load_state_dict(
+        {k: v.to(dev) for k, v in payload["state_dict"].items()},
+        strict=True)
+    for name, p in state.model.named_parameters():
+        state.optimizer.state[p]["momentum_buffer"] = \
+            payload["momentum"][name].to(dev)
+    state.step = int(payload["step"])
+    return state
 
 
 def load_checkpoint_extras(path) -> dict:

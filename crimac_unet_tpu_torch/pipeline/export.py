@@ -105,7 +105,13 @@ def make_serving_forward(model, state_dict, config, device=None):
     ``nn.Module`` on ``device`` (cuda unless asked otherwise): BatchNorm
     folded unless the model has none or ``fold_bn: false``, parameters
     frozen, channels_last as the live runner holds them.  Call it with
-    ``(x)`` or, for metadata models, ``(x, meta)``."""
+    ``(x)`` or, for metadata models, ``(x, meta)``.  Only the U-Net
+    exports."""
+    from ..models.unet import UNet
+    if not isinstance(model, UNet):
+        raise ValueError(f"export serves the U-Net only, not a "
+                         f"{type(model).__name__}: serve it live in patch "
+                         "mode (save_predict)")
     validate_meta_channels(config.get("meta_channels"))
     n_meta = get_in_channels(config.get("meta_channels"))
     late = bool(config.get("late_meta_inject"))
@@ -263,9 +269,14 @@ def export_checkpoint(checkpoint_path, config, out_path, batch=None,
     artifact; returns the ``ExportedProgram``.  ``mode``: 'patch'
     (``patch_size`` windows, ``batch`` fixed or symbolic) or 'slab'
     (whole chunks, every dimension symbolic — ``batch`` must be None)."""
+    from ..models import architecture
     from ..models.unet import build_unet
     from ..models.weights import load_checkpoint
 
+    if architecture(config) != "unet":
+        raise ValueError(f"export serves the U-Net only; the config names "
+                         f"architecture {architecture(config)!r}: serve it "
+                         "live in patch mode (save_predict)")
     if mode not in ("patch", "slab"):
         raise ValueError(f"unknown export mode {mode!r}: "
                          "expected 'patch' or 'slab'")

@@ -34,7 +34,6 @@ import torch.nn.functional as F
 from ..constants import LABEL_BOUNDARY_VAL, LABEL_IGNORE_VAL, SEABED_PAD
 from ..data.meta_channels import get_in_channels, validate_meta_channels
 from ..models.fold_bn import fold_for_serving
-from ..models.unet import slab_halo
 from ..models.weights import to_tensors
 from ..ops import data_ops, label_ops, metrics
 from ..ops.gather_db import gather_db
@@ -133,10 +132,17 @@ class GriddedRunner:
         # more ranks than the group holds raise (parallel/mesh.get_mesh)
         self.mesh = get_mesh(int(config.get("mesh_devices", 1)))
         self.fwd_batch = _round_up(self.fwd_batch, mesh_size(self.mesh))
-        # slab mode's ping-axis halo past a range's aligned ends (96 at
-        # depth 5)
-        self.slab_halo = slab_halo(self.model.depth)
+        # slab mode's pooling alignment and ping-axis halo past a range's
+        # aligned ends, the model's (16 and 96 for the depth-5 U-Net)
+        self.alignment = self.model.alignment
+        self.slab_halo = self.model.halo
         self._col_starts: dict = {}
+        if self.infer_mode == "slab" and self.slab_halo is None:
+            raise ValueError(
+                f"infer_mode='slab' needs a model whose outputs read a "
+                f"finite halo of the input; {type(self.model).__name__} "
+                "attends over the whole window, so no slab can be cut "
+                "from a survey: serve it with infer_mode: patch")
         if self.infer_mode == "slab":
             # slab outputs agree with patch mode in patch interiors only
             # when the slab's pooling grid lines up with every patch's:
@@ -145,7 +151,7 @@ class GriddedRunner:
             # slab and patch outputs differ slightly at every pixel (JAX
             # runner.py:113-144, DIVERGENCES.md); alignment_warning: false
             # silences the warning (config_serving.yaml)
-            div = 2 ** (self.model.depth - 1)
+            div = self.alignment
             if (self.stride[0] % div or self.stride[1] % div
                     or self.overlap % div) and \
                     bool(config.get("alignment_warning", True)):
@@ -276,7 +282,7 @@ class GriddedRunner:
         sh, sw = self.stride
         o = self.overlap
         Hp, Wp = R * sh + 2 * o, C * sw + 2 * o
-        div = 2 ** (self.model.depth - 1)  # pooling alignment
+        div = self.alignment  # pooling alignment
         n = mesh_size(self.mesh)
         H16, W16 = _round_up(Hp, div), _round_up(Wp, div * n)
         border = border_ext if border_ext is not None else (0, Hp, 0, Wp)

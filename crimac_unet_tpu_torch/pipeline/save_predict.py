@@ -17,7 +17,7 @@ from pathlib import Path
 from ..config import (get_argparse_parser, load_yaml_config,
                       parse_config_options)
 from ..data.partition import make_partition
-from ..models.unet import build_unet
+from ..models import build_model
 from ..models.weights import load_checkpoint
 from ..parallel.mesh import init_distributed
 from ..utils.general import fix_seeds
@@ -95,7 +95,7 @@ def main(argv=None):
     # device work and rank 0 writes
     init_distributed(device=resolve_device(config.get("device")))
     state_dict = load_checkpoint(config["checkpoint_path"])
-    runner = GriddedRunner(build_unet(config), state_dict, config,
+    runner = GriddedRunner(build_model(config), state_dict, config,
                            device=config.get("device"))
     data_obj = make_partition(config)
     # a torch.profiler trace of the run when CRIMAC_PROFILE_DIR is set,

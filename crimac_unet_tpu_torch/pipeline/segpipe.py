@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..data.device_pool import META_ORDER
-from ..models.unet import build_unet
+from ..models import architecture, build_model
 from ..models.weights import load_checkpoint
 from ..ops import metrics as M
 from ..parallel.mesh import (all_reduce_, barrier, broadcast_object,
@@ -37,7 +37,11 @@ from .runner import resolve_device
 
 
 class SegPipeUNet:
-    """Train/validate the flagship U-Net (reference pipeline.py:379-410)."""
+    """Train/validate the model the config names (reference
+    pipeline.py:379-410): the flagship U-Net, or a SegFormer
+    (``architecture: segformer``), whose checkpoints are the port's
+    ``best.pt`` / ``last.pt`` (pipeline/engine.py) where the U-Net's are
+    the JAX package's msgpack files."""
 
     def __init__(self, config: dict, checkpoint_dir=None,
                  experiment_name="model"):
@@ -57,8 +61,12 @@ class SegPipeUNet:
         # bf16 conv compute by default (f32 master params, f32 loss), as
         # the JAX package (segpipe.py:36-42); train_dtype: float32 for
         # exact-parity runs
-        self.model = build_unet(dict(
+        self.model = build_model(dict(
             config, compute_dtype=config.get("train_dtype", "bfloat16")))
+        # the checkpoint files' suffix: the JAX package's format, or the
+        # port's own where the JAX package has no such model
+        self.ckpt_ext = ".msgpack" if architecture(config) == "unet" \
+            else ".pt"
         self.model.to(self.device)
         self.state = None
         self.variables = None
@@ -133,7 +141,7 @@ class SegPipeUNet:
         either package's msgpack checkpoint); training then starts from
         them at step 0 (reference pipeline.py:109-130)."""
         if checkpoint_path is None:
-            checkpoint_path = self.checkpoint_dir / "best.msgpack"
+            checkpoint_path = self.checkpoint_dir / ("best" + self.ckpt_ext)
         self.variables = load_checkpoint(checkpoint_path)
         return self.variables
 
@@ -142,7 +150,8 @@ class SegPipeUNet:
         step counter included, and the best-F1 high-water mark from its
         sidecar (so the first post-resume validation cannot replace
         best.msgpack with a worse model)."""
-        if str(checkpoint_path).endswith(".pt"):
+        if str(checkpoint_path).endswith(".pt") and \
+                engine.read_train_state(checkpoint_path) is None:
             raise ValueError(
                 "Reference .pt checkpoints carry no optimizer state or "
                 "step counter and cannot seed a TRAINING resume; import "
@@ -189,7 +198,8 @@ class SegPipeUNet:
             self.init_model(state_dict=self.variables)
         if not resuming and self.checkpoint_dir is not None and \
                 any((self.checkpoint_dir / n).exists()
-                    for n in ("last.msgpack", "best.msgpack")):
+                    for n in ("last" + self.ckpt_ext,
+                              "best" + self.ckpt_ext)):
             raise FileExistsError(
                 f"model already exists at {self.checkpoint_dir}")
         # no rank may find rank 0's first checkpoint in that check
@@ -246,11 +256,11 @@ class SegPipeUNet:
                 logger.add_scalar("learning_rate_0", self._lr_schedule(i + 1),
                                   global_step=i + 1)
             if ckpt_every and (i + 1) % ckpt_every == 0:
-                self._save("last.msgpack", self.best_F1_val)
+                self._save("last" + self.ckpt_ext, self.best_F1_val)
         flush_losses(i + 1)
 
         if self.config.get("save_model_params", True):
-            self._save("last.msgpack", self.best_F1_val)
+            self._save("last" + self.ckpt_ext, self.best_F1_val)
         self.variables = self.model.state_dict()
         return self.state
 
@@ -331,7 +341,7 @@ class SegPipeUNet:
 
         if f1 > self.best_F1_val and self.checkpoint_dir is not None:
             self.best_F1_val = f1
-            self._save("best.msgpack", f1)
+            self._save("best" + self.ckpt_ext, f1)
         return f1, mean_loss
 
 

@@ -105,7 +105,8 @@ def _check_end_to_end(rep: _Report, device) -> None:
     from .data.fixtures import make_zarr_survey
     from .data.zarr_reader import DataReaderZarr
     from .data.zarrlite import ZGroup
-    from .models.unet import build_unet, init_random_
+    from .models import build_model
+    from .models.unet import init_random_
     from .ops import cuda_lib
     from .pipeline.predict import save_survey_predictions_zarr
     from .pipeline.runner import GriddedRunner
@@ -117,9 +118,9 @@ def _check_end_to_end(rep: _Report, device) -> None:
         cfg = {"patch_size": [32, 32], "patch_overlap": 4,
                "frequencies": [18, 38, 120, 200], "depth": 2,
                "start_filts": 8, "fwd_batch": 8}
-        model = init_random_(build_unet(cfg),
+        model = init_random_(build_model(cfg),
                              torch.Generator().manual_seed(0))
-        runner = GriddedRunner(build_unet(cfg), model.state_dict(), cfg,
+        runner = GriddedRunner(build_model(cfg), model.state_dict(), cfg,
                                device=device)
         out = tmp + "/pred.zarr"
         cuda_lib.reset_launches()

@@ -722,3 +722,70 @@ def test_train_step_launches_each_bn_relu_kernel_per_layer(cuda):
     for k in ("bn_relu_stats", "bn_relu_apply", "bn_relu_grad_stats",
               "bn_relu_grad_apply"):
         assert cuda_lib.launches[k] == 18, (k, dict(cuda_lib.launches))
+
+
+GRAPH_CONFIGS = {
+    "unet": {"depth": 3, "start_filts": 8},
+    "segformer": {"architecture": "segformer", "hidden_sizes": [16, 32],
+                  "depths": [1, 1], "num_attention_heads": [1, 2],
+                  "sr_ratios": [2, 1], "patch_sizes": [7, 3],
+                  "strides": [4, 2], "mlp_ratios": [4, 4],
+                  "decoder_hidden_size": 32, "drop_path_rate": 0.0,
+                  "classifier_dropout_prob": 0.0},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", sorted(GRAPH_CONFIGS))
+def test_train_graph_steps_like_the_eager_step(cuda, arch):
+    """Three bfloat16 train steps with ``train_graph`` (forward, loss and
+    backward replayed as one CUDA graph) and eagerly, from the same
+    weights, batches and augmentation seed: the losses within 1e-3
+    relative, and each parameter's and BatchNorm statistic's change
+    within 2e-2 of the larger of its eager change's and the median
+    leaf's, in max-norm, as the benchmark's ``update_gap`` takes them
+    (the same kernels; some backward kernels, flash attention's among
+    them, add by atomics in a varying order, and a bias ahead of a
+    BatchNorm moves by that rounding alone).  The parameters hold the
+    graph's gradients, the same tensors every step."""
+    from crimac_unet_tpu_torch.models import build_model, init_train_
+    from crimac_unet_tpu_torch.pipeline import engine
+    base = dict(GRAPH_CONFIGS[arch], patch_size=[64, 64],
+                frequencies=[18, 38, 120, 200], lr=0.01, lr_reduction=0.5,
+                lr_step=250, momentum=0.95, compute_dtype="bfloat16")
+    rng = np.random.RandomState(4)
+    batches = [(torch.from_numpy(rng.lognormal(np.log(3e-6), 1.5,
+                                               (8, 4, 64, 64))
+                                 .astype(np.float32)).to(cuda),
+                torch.from_numpy(rng.choice([0, 27, 1], (8, 64, 64))
+                                 .astype(np.int32)).to(cuda))
+               for _ in range(3)]
+    out = {}
+    for graph in (False, True):
+        cfg = dict(base, train_graph=graph)
+        net = init_train_(build_model(cfg), torch.Generator().manual_seed(0))
+        state = engine.init_train_state(net.to(cuda), cfg)
+        start = {k: v.detach().clone() for k, v in net.state_dict().items()}
+        step = engine.make_train_step(cfg)
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        losses, grads = [], []
+        for data, labels in batches:
+            losses.append(float(step(state, data, labels, gen)))
+            grads.append([p.grad.data_ptr() for p in net.parameters()])
+        out[graph] = (losses, start, net.state_dict(), grads)
+    (l0, s0, e0, _), (l1, s1, e1, g1) = out[False], out[True]
+    for a, b in zip(l1, l0):
+        assert abs(a - b) <= 1e-3 * abs(b)
+    assert g1[0] == g1[1] == g1[2]
+    moved = {}
+    for k in e0:
+        assert torch.equal(s0[k], s1[k]), k
+        if not e0[k].is_floating_point():
+            assert torch.equal(e0[k], e1[k]), k
+            continue
+        eager = e0[k] - s0[k]
+        moved[k] = (float(eager.abs().max()),
+                    float((e1[k] - s1[k] - eager).abs().max()))
+    median = float(np.median([m for m, _ in moved.values()]))
+    for k, (m, gap) in moved.items():
+        assert gap <= 2e-2 * max(m, median), (k, gap, m, median)
